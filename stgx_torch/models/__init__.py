@@ -1,0 +1,25 @@
+"""Model registry of the port. Only RT-ST-GCN is ported so far; asking for
+any other family of the JAX package raises ``NotImplementedError``."""
+
+from stgx_torch.models.rtstgcn import RtStgcn
+
+# families of stgx.models that later slices port, in ROADMAP.md's order
+_NOT_PORTED = (
+    "co-st-gcn", "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn",
+    "shift-gcn++", "shift-gcn++-teacher",
+)
+
+
+class _Registry(dict):
+    def __missing__(self, name):
+        if name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"model {name!r} is not ported to stgx_torch yet; see the "
+                "module queue in ROADMAP.md"
+            )
+        raise KeyError(f"unknown model: {name!r} (have {sorted(self)})")
+
+
+MODELS = _Registry({"rt-st-gcn": RtStgcn})
+
+__all__ = ["MODELS", "RtStgcn"]
