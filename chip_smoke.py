@@ -16,6 +16,14 @@ launch counters that the path ran every kernel, and holds every output
 against the all-plain run on the card. Under LayerNorm it checks that the
 streamed logits equal the batch form's.
 
+The training path follows: synthetic PKU-MMD trials through the port's
+``Trainer`` (forward, backward through the ``gcn_grads`` and
+``rt_fused_bwd`` kernels and the forward kernels' backward launches, Adam),
+unfused and fused, with the exact launches of each step, the first step's
+gradients against the all-plain run in float64, and a falling CE; then
+``stgx_torch.bench.train_throughput`` at 8 x 1024 frames in fp32 and bf16,
+unfused and fused. Each phase prints its seconds.
+
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -28,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from unittest import mock
@@ -35,6 +44,10 @@ from unittest import mock
 CONFIG = "configs/pku-mmd/as_is/rtstgcn.json"
 NUM_CLASSES = 52
 N_BATCH, L_BATCH = 4, 1024  # batch form: captures x frames
+N_TRAIN, L_TRAIN = 8, 1024  # train step: stacked trials x frames
+# training path: synthetic PKU-MMD trials of 512-2048 frames, stacked 4 to a
+# step in one 2048-frame bucket, one Adam step per 4 trials
+TRAIN_TRIALS, TRAIN_LEN, TRAIN_BS, TRAIN_EPOCHS = 8, (512, 2048), 4, 3
 B_STREAM, L_STREAM = 64, 256  # streaming check: streams x frames
 SEED = 0
 
@@ -43,12 +56,24 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 # Tolerances, relative to max(1, max|plain|):
-# kernel vs plain, fp32: the same fp32 products summed in another order, over
-#   up to P*V*C_in = 19,200 terms;
-# kernel vs plain, bf16: both sum in fp32, one rounding of the output to bf16
-#   (2^-8 relative) plus the order;
+# kernel vs plain, an fp32 output: the same fp32 products summed in another
+#   order, over up to P*V*C_in = 19,200 terms (bf16 inputs too: both sides
+#   take the same bf16 values and sum them in fp32);
+# kernel vs plain, a bf16 output: both sum in fp32, one rounding of the
+#   output to bf16 (2^-8 relative) plus the order;
 # whole model: nine normalised layers of fp32 sums in another order.
 TOL_FP32, TOL_BF16, TOL_MODEL = 1e-4, 1e-2, 1e-4
+# first-step parameter gradients, relative to max|ref| of each parameter.
+# TOL_GRAD holds the fp32 kernel runs against the all-plain run in float64.
+# The gradients of a layer's graph-conv weight and bias are sums over
+# N*L*V = 204,800 terms that largely cancel after BatchNorm, so any fp32 run
+# sits some way from the exact value: on the card the kernel runs are
+# 2.0e-4 from it at worst (layers.7.gcn.bias) and the fp32 all-plain run
+# 6.9e-4 (layers.7.gcn.kernel). Beside it, each parameter's kernel error
+# must stay within GRAD_VS_PLAIN times the fp32 all-plain run's own error
+# (plus TOL_FORMS): the kernels are never the less accurate side. TOL_FORMS
+# holds the fused and the unfused kernel runs against each other.
+TOL_GRAD, TOL_FORMS, GRAD_VS_PLAIN = 5e-4, 1e-5, 2.0
 
 
 class SmokeFailure(Exception):
@@ -92,8 +117,11 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
 
 @contextmanager
 def plain_ops():
-    """Send the model's three kernel calls to their plain PyTorch versions,
-    for the all-plain reference run on the card."""
+    """Send the model's kernel calls to their plain PyTorch versions, for the
+    all-plain reference run on the card. The plain versions are einsums and
+    shifted adds that autograd differentiates itself, so a backward under
+    this context runs no kernel either: the autograd Functions whose
+    backwards launch gcn_grads and rt_fused_bwd are never entered."""
     import stgx_torch.ops.gcn_core as gcm
     import stgx_torch.ops.graph_conv as gconv
     import stgx_torch.ops.rt_fused as rtf
@@ -106,21 +134,27 @@ def plain_ops():
         yield
 
 
-def counts():
+def _wrappers():
     from stgx_torch.ops.gcn_core import gcn_core
-    from stgx_torch.ops.rt_fused import rt_fused_core
+    from stgx_torch.ops.gcn_grads import gcn_grads
+    from stgx_torch.ops.rt_fused import rt_fused_bwd, rt_fused_core
     from stgx_torch.ops.window_sum import window_sum
 
-    return {"gcn_core": gcn_core.launches, "window_sum": window_sum.launches,
-            "rt_fused": rt_fused_core.launches}
+    return {"gcn_core": gcn_core, "window_sum": window_sum, "rt_fused": rt_fused_core,
+            "gcn_grads": gcn_grads, "rt_fused_bwd": rt_fused_bwd}
+
+
+def counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_counts():
-    from stgx_torch.ops.gcn_core import gcn_core
-    from stgx_torch.ops.rt_fused import rt_fused_core
-    from stgx_torch.ops.window_sum import window_sum
+    for fn in _wrappers().values():
+        fn.launches = 0
 
-    gcn_core.launches = window_sum.launches = rt_fused_core.launches = 0
+
+def phase_done(name: str, t0: float) -> None:
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def diff(after, before):
@@ -130,9 +164,62 @@ def diff(after, before):
 # ----------------------------------------------------------------- kernels
 
 
+def bound(nbytes, flops, dtype="float32"):
+    """(bound ms, bytes ms, operations ms) at the H100's peaks."""
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    t_o = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_b, t_o), t_b, t_o
+
+
+def add_record(recs, name, shape, err, ms, plain_ms, lib_ms, b):
+    """Print one kernel timing and add it into ``recs[name]`` (the kernels
+    line sums a kernel's records over the layers)."""
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"  {name} {shape} float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {lib}, bound {b[0]:.4f} ms "
+          f"({'bytes' if b[1] >= b[2] else 'operations'})", flush=True)
+    r = recs.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                               "library_ms": 0.0 if lib_ms is not None else None,
+                               "bound_ms": 0.0, "_tb": 0.0, "_to": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    if lib_ms is not None:
+        r["library_ms"] += lib_ms
+    r["bound_ms"] += b[0]
+    r["_tb"] += b[1]
+    r["_to"] += b[2]
+
+
+def compare(name, shape, kern, plain, dtype, tol):
+    """Kernel against plain version on the same inputs; returns the max abs
+    error (of the worst output where there are several). ``tol`` holds the
+    outputs stored in the input's type; an fp32 output of bf16 inputs (the
+    backward kernels' gradients) is held to TOL_FP32."""
+    import torch
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g is None and r is None:
+            continue
+        t = TOL_FP32 if g.dtype == torch.float32 else tol
+        err, rel = rel_err(g, r)
+        print(f"  {name} {shape} {dtype} output {i}: max abs err {err:.3e} "
+              f"(relative {rel:.3e}, tolerance {t:g})", flush=True)
+        check(bool(torch.isfinite(g.float()).all()), f"{name} {shape}: non-finite")
+        check(rel <= t, f"{name} {shape} {dtype} output {i}: relative error "
+              f"{rel:.3e} > {t}")
+        worst = max(worst, err)
+    return worst
+
+
 def kernel_phase(model, layers):
-    """Each kernel against its plain version at the main path's shapes.
-    Returns the per-kernel records of the ``kernels`` line (without
+    """Each forward kernel against its plain version at the main path's
+    shapes. Returns the per-kernel records of the ``kernels`` line (without
     launches)."""
     import torch
     import torch.nn.functional as F
@@ -148,39 +235,10 @@ def kernel_phase(model, layers):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
-    def bound(nbytes, flops, dtype="float32"):
-        t_b = nbytes / PEAK_BYTES_S * 1e3
-        t_o = flops / PEAK_FLOPS[dtype] * 1e3
-        return max(t_b, t_o), t_b, t_o
-
     recs = {}
 
-    def add(name, shape, err, ms, plain_ms, lib_ms, b):
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"  {name} {shape} float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib}, bound {b[0]:.4f} ms "
-              f"({'bytes' if b[1] >= b[2] else 'operations'})", flush=True)
-        r = recs.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                   "library_ms": 0.0 if lib_ms is not None else None,
-                                   "bound_ms": 0.0, "_tb": 0.0, "_to": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        if lib_ms is not None:
-            r["library_ms"] += lib_ms
-        r["bound_ms"] += b[0]
-        r["_tb"] += b[1]
-        r["_to"] += b[2]
-
-    def compare(name, shape, kern, plain, dtype, tol):
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        print(f"  {name} {shape} {dtype}: max abs err {err:.3e} "
-              f"(relative {rel:.3e}, tolerance {tol:g})", flush=True)
-        check(bool(torch.isfinite(got.float()).all()), f"{name} {shape}: non-finite")
-        check(rel <= tol, f"{name} {shape} {dtype}: relative error {rel:.3e} > {tol}")
-        return err
+    def add(*a):
+        add_record(recs, *a)
 
     # gcn_core: R = N*L rows in the batch form, R = B streams in the cell
     print("gcn_core vs plain (csrc/gcn_core.cu)", flush=True)
@@ -256,6 +314,235 @@ def kernel_phase(model, layers):
         add("rt_fused", (N_BATCH, L_BATCH, v, cin, cout, gamma, s), err, ms, plain_ms,
             None, bound(nbytes, flops))
     return recs
+
+
+def check_repeatable(name, kern):
+    """Two calls give the same bits: the cross-block sums run in a fixed
+    order, with no atomics."""
+    import torch
+
+    a, b = kern(), kern()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{name}: two calls on the same inputs differ")
+
+
+def backward_kernel_phase(model, layers):
+    """The two backward kernels against their plain versions at the training
+    path's shapes (N_TRAIN x L_TRAIN frames, each of the 9 layers), fp32 and
+    bf16. Returns their records of the ``kernels`` line."""
+    import torch
+
+    from stgx_torch.ops.gcn_grads import gcn_grads, gcn_grads_plain
+    from stgx_torch.ops.rt_fused import rt_fused_bwd, rt_fused_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    v, p, gamma = model.num_joints, model.partitions, model.kernel
+    n, l = N_TRAIN, L_TRAIN
+    rows = n * l
+    recs = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    print("gcn_grads vs plain (csrc/gcn_grads.cu)", flush=True)
+    for cin, cout, _ in layers:
+        A = (model.A * (1.0 + 0.1 * rnd(p, v, v))).contiguous()
+        W = rnd(p, cin, cout, scale=cin**-0.5)
+        x32, g32 = rnd(rows, v, cin), rnd(rows, v, cout)
+        errs = {}
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x, g = x32.to(dt), g32.to(dt)
+            errs[dt] = compare("gcn_grads", (rows, v, cin, cout), lambda: gcn_grads(x, g, A, W),
+                               lambda: gcn_grads_plain(x, g, A, W), str(dt)[6:], tol)
+            check_repeatable("gcn_grads", lambda: gcn_grads(x, g, A, W))
+        ms = time_ms(lambda: gcn_grads(x32, g32, A, W))
+        plain_ms = time_ms(lambda: gcn_grads_plain(x32, g32, A, W))
+        # the yardstick: _core_bwd's two fp32 einsums (pallas_gcn.py:228-231)
+        lib_ms = time_ms(lambda: (torch.einsum("rvc,pvw,rwd->pcd", x32, A, g32),
+                                  torch.einsum("rvc,rwd,pcd->pvw", x32, g32, W)))
+        flops = 4 * rows * p * v * cin * (v + cout)
+        nbytes = 4 * (rows * v * (cin + cout) + 2 * (p * v * v + p * cin * cout))
+        add_record(recs, "gcn_grads", (rows, v, cin, cout), errs[torch.float32], ms,
+                   plain_ms, lib_ms, bound(nbytes, flops))
+
+    print("rt_fused_bwd vs plain (csrc/rt_fused_bwd.cu)", flush=True)
+    for cin, cout, s in layers:
+        A = (model.A * (1.0 + 0.1 * rnd(p, v, v))).contiguous()
+        W = rnd(p, cin, cout, scale=cin**-0.5)
+        x32, g32 = rnd(n, l, v, cin), rnd(n, l, v, cout)
+        errs = {}
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x, g = x32.to(dt), g32.to(dt)
+            errs[dt] = compare("rt_fused_bwd", (n, l, v, cin, cout, gamma, s),
+                               lambda: rt_fused_bwd(x, g, A, W, gamma, s),
+                               lambda: rt_fused_bwd_plain(x, g, A, W, gamma, s),
+                               str(dt)[6:], tol)
+            check_repeatable("rt_fused_bwd", lambda: rt_fused_bwd(x, g, A, W, gamma, s))
+        ms = time_ms(lambda: rt_fused_bwd(x32, g32, A, W, gamma, s))
+        plain_ms = time_ms(lambda: rt_fused_bwd_plain(x32, g32, A, W, gamma, s))
+        k = gamma // s
+        # (gx, gA, gW) at their least work, the window's adds and gbe's sum
+        window_adds = n * v * cout * sum(min(k, (l - 1 - t) // s + 1) - 1 for t in range(l))
+        flops = (2 * rows * p * v * (2 * cin * cout + 3 * v * cin) + window_adds
+                 + rows * v * cout)
+        nbytes = 4 * (rows * v * (2 * cin + cout) + 2 * (p * v * v + p * cin * cout)
+                      + v * cout)
+        add_record(recs, "rt_fused_bwd", (n, l, v, cin, cout, gamma, s), errs[torch.float32],
+                   ms, plain_ms, None, bound(nbytes, flops))
+    return recs
+
+
+def grad_err(got, ref) -> float:
+    """Max abs error over max|ref|: each parameter's gradient at its own
+    scale, however small."""
+    err = (got.double() - ref.double()).abs().max().item()
+    scale = ref.double().abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def worst_grad_err(got, ref):
+    """(worst grad_err over the parameters, that parameter's name)."""
+    return max((grad_err(got[k], ref[k]), k) for k in ref)
+
+
+def first_step_grads(trainer, batch):
+    """The parameter gradients of one grad step on ``batch``, cleared after."""
+    trainer.optimizer.zero_grad(set_to_none=True)
+    trainer.grad_step(*batch, [float(trainer.opt.batch_size)] * batch[0].shape[0])
+    grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return grads
+
+
+def float64_grads(trainer, batch):
+    """The first step's parameter gradients in float64: a copy of the model
+    and the batch in float64 through the all-plain unfused path (the plain
+    versions sum in the input's type where it is wider than fp32), with the
+    loss and divisors of ``first_step_grads``."""
+    import copy
+
+    import torch
+
+    from stgx_torch.ops.rt_fused import rt_fused_enabled
+
+    check(not rt_fused_enabled(), "the float64 witness runs the unfused form")
+    model = copy.deepcopy(trainer.model).double()
+    x, y, mask = batch
+    with plain_ops():
+        out = model(x.double(), mask=mask, train=True)
+        ce, mse = trainer.loss(out, y, mask, per_sample=True)
+        ((ce + mse) / float(trainer.opt.batch_size)).sum().backward()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    check(all(g.dtype == torch.float64 for g in grads.values()),
+          "the float64 witness lost its precision")
+    return grads
+
+
+def training_phase(cfg, data_dir):
+    """The training path at full width: synthetic PKU-MMD trials through the
+    Trainer, unfused and fused. Checks the per-step launches, the first
+    step's gradients against the all-plain run in float64 (the fp32
+    all-plain run's own distance from it is printed beside) and a falling
+    CE; returns the launch counts of the two paths."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.config import build_model
+    from stgx_torch.data import SkeletonDirDataset, class_distribution
+    from stgx_torch.data.synth import generate
+    from stgx_torch.ops.rt_fused import set_rt_fused
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.parallel.segments import pad_to_bucket
+    from stgx_torch.utils import LOSS
+
+    generate(data_dir, skeleton="pku-mmd", num_classes=NUM_CLASSES, in_feat=3,
+             num_train=TRAIN_TRIALS, num_val=0, min_len=TRAIN_LEN[0],
+             max_len=TRAIN_LEN[1], seed=SEED)
+    ds = SkeletonDirDataset(os.path.join(data_dir, "train", "features"),
+                            os.path.join(data_dir, "train", "labels"))
+    dist = class_distribution(ds, NUM_CLASSES)
+    n_layers = len(cfg["arch"]["rt-st-gcn"]["in_ch"])
+    steps = -(-TRAIN_TRIALS // TRAIN_BS) * TRAIN_EPOCHS
+    first = [pad_to_bucket(*ds[i], TRAIN_LEN[1]) for i in range(TRAIN_BS)]
+    launched, kernel_grads, exact = {}, {}, None
+    for fused in (False, True):
+        name = "fused" if fused else "unfused"
+        set_rt_fused(fused)
+        trainer = Trainer(model=build_model(cfg, NUM_CLASSES), kind="frame",
+                          loss=LOSS["rt-st-gcn"](dist),
+                          opt=OptimizerConfig(
+                              learning_rate=cfg["optimizer"]["learning_rate"],
+                              batch_size=TRAIN_BS, seed=SEED),
+                          bucket=TRAIN_LEN[1], trial_batch=TRAIN_BS)
+        batch = trainer.stack_trials(*zip(*first))
+        before = counts()
+        if exact is None:  # the same start and batch in both forms
+            exact = float64_grads(trainer, batch)
+        with plain_ops():
+            ref = first_step_grads(trainer, batch)
+        check(counts() == before, "the all-plain training steps launched a kernel")
+        got = kernel_grads[name] = first_step_grads(trainer, batch)
+        check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+              f"train {name}: non-finite gradients")
+        worst = worst_grad_err(got, exact)
+        plain32 = worst_grad_err(ref, exact)
+        print(f"train {name}: first-step gradients vs all-plain float64, worst relative "
+              f"error {worst[0]:.3e} ({worst[1]}, tolerance {TOL_GRAD:g}); the fp32 "
+              f"all-plain run's {plain32[0]:.3e} ({plain32[1]}); kernels vs fp32 "
+              f"all-plain {worst_grad_err(got, ref)[0]:.3e}", flush=True)
+        errs = sorted(((grad_err(got[k], exact[k]), grad_err(ref[k], exact[k]), k)
+                       for k in exact), reverse=True)
+        for e_k, e_p, k in errs[:5]:
+            print(f"  {k}: kernels {e_k:.3e}, fp32 all-plain {e_p:.3e} from float64",
+                  flush=True)
+        check(worst[0] <= TOL_GRAD, f"train {name}: gradient {worst[1]} off by {worst[0]:.3e}")
+        for e_k, e_p, k in errs:
+            check(e_k <= GRAD_VS_PLAIN * e_p + TOL_FORMS,
+                  f"train {name}: gradient {k} {e_k:.3e} from float64, the fp32 "
+                  f"all-plain run only {e_p:.3e}")
+
+        ce0 = trainer.evaluate(ds)["ce"]
+        torch.cuda.synchronize()
+        reset_counts()
+        c0 = counts()
+        t0 = time.perf_counter()
+        ces = [trainer.train_epoch(ds, epoch)["ce"] for epoch in range(TRAIN_EPOCHS)]
+        torch.cuda.synchronize()
+        launched[name] = diff(counts(), c0)
+        secs = time.perf_counter() - t0
+        ce1 = trainer.evaluate(ds)["ce"]
+        print(f"train {name}: {TRAIN_EPOCHS} epochs x {TRAIN_TRIALS} trials "
+              f"({steps} Adam steps) in {secs:.2f} s; epoch CE {np.round(ces, 4).tolist()}; "
+              f"eval CE {ce0:.4f} -> {ce1:.4f}; launches {json.dumps(launched[name])}",
+              flush=True)
+        check(np.isfinite(ces).all() and ce1 < ce0, f"train {name}: CE did not fall")
+        want = ({"rt_fused": n_layers, "rt_fused_bwd": n_layers} if fused else
+                {"gcn_core": 2 * n_layers, "gcn_grads": n_layers, "window_sum": 2 * n_layers})
+        per_step = {k: v / steps for k, v in launched[name].items()}
+        check(per_step == {k: want.get(k, 0) for k in per_step},
+              f"train {name}: launches per step {per_step}, want {want}")
+    set_rt_fused(False)
+    # the two forms run different kernels for the same gradients
+    worst = worst_grad_err(kernel_grads["fused"], kernel_grads["unfused"])
+    print(f"train: fused vs unfused first-step gradients (both on the kernels), worst "
+          f"relative error {worst[0]:.3e} ({worst[1]}, tolerance {TOL_FORMS:g})", flush=True)
+    check(worst[0] <= TOL_FORMS, f"train: the two forms' gradients differ by {worst[0]:.3e}")
+    return launched
+
+
+def throughput_phase():
+    """train_throughput at 8 x 1024 frames: fp32 and bf16, unfused and fused."""
+    from stgx_torch.bench import train_throughput
+    from stgx_torch.ops.rt_fused import set_rt_fused
+
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        for fused in (False, True):
+            argv = ["--dtype", dtype, "--trials", str(N_TRAIN), "--frames", str(L_TRAIN),
+                    "--profile"]
+            records.append(train_throughput.main(argv + (["--fused"] if fused else [])))
+    set_rt_fused(False)
+    return records
 
 
 # -------------------------------------------------------------- main path
@@ -337,22 +624,28 @@ def run() -> int:
     arch = cfg["arch"]["rt-st-gcn"]
     layers = list(zip(arch["in_ch"], arch["out_ch"], arch["stride"]))
 
-    # each kernel against its plain version, at the main path's shapes
+    # each kernel against its plain version, at the main paths' shapes
+    t_phase = time.perf_counter()
     shape_model = build_model(cfg, NUM_CLASSES)
     recs = kernel_phase(shape_model, layers)
+    phase_done("forward kernels vs plain", t_phase)
+    t_phase = time.perf_counter()
+    recs.update(backward_kernel_phase(shape_model, layers))
+    phase_done("backward kernels vs plain", t_phase)
 
-    # the main path, with the launch counters at zero
+    # the serving path, with the launch counters at zero
+    t_phase = time.perf_counter()
     model, x, y_unfused, y_fused, records, parts, launched = main_path(cfg)
     n = len(layers)
     steps = 2 * (WARMUP_STEPS + L_STREAM)  # serving ran B = 1 and B = B_STREAM
-    print(f"launches on the main path: {json.dumps(parts)}", flush=True)
-    check(parts["unfused"] == {"gcn_core": n, "window_sum": n, "rt_fused": 0},
+    none = {k: 0 for k in counts()}
+    print(f"launches on the serving path: {json.dumps(parts)}", flush=True)
+    check(parts["unfused"] == {**none, "gcn_core": n, "window_sum": n},
           f"unfused batch forward launched {parts['unfused']}")
-    check(parts["fused"] == {"gcn_core": 0, "window_sum": 0, "rt_fused": n},
+    check(parts["fused"] == {**none, "rt_fused": n},
           f"fused batch forward launched {parts['fused']}")
-    check(parts["serving"] == {"gcn_core": n * steps, "window_sum": 0, "rt_fused": 0},
+    check(parts["serving"] == {**none, "gcn_core": n * steps},
           f"serving launched {parts['serving']}, want {n * steps} gcn_core")
-    check(all(v > 0 for v in launched.values()), f"a kernel never launched: {launched}")
 
     before = counts()
     with torch.inference_mode(), plain_ops():
@@ -407,12 +700,38 @@ def run() -> int:
     print(f"LayerNorm FIFO == batch, 2 x 128 frames: max abs err {err:.3e} "
           f"(relative {rel:.3e}, tolerance {TOL_MODEL:g})", flush=True)
     check(rel <= TOL_MODEL, f"FIFO != batch under LayerNorm: {rel:.3e}")
+    del ln, model, shape_model
+    phase_done("serving path", t_phase)
+
+    # the training path, with the launch counters at zero for each form.
+    # Every layer's input needs a gradient (fcn_in comes before layer 0),
+    # so the unfused backward launches gcn_core for gx in every layer; a
+    # layer whose input needed none would skip that launch.
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data_dir:
+        trained = training_phase(cfg, data_dir)
+    phase_done("training path", t_phase)
+    for part in trained.values():
+        launched = {k: launched[k] + part[k] for k in launched}
+    check(all(v > 0 for v in launched.values()), f"a kernel never launched: {launched}")
+
+    t_phase = time.perf_counter()
+    throughput = throughput_phase()
+    phase_done("train throughput", t_phase)
+    smi_now = smi_line()
+    for rec in throughput:
+        print(f"train step {rec['dtype']} {'fused' if rec['fused'] else 'unfused'}, "
+              f"{rec['trials']} x {rec['frames']} frames: p50 {rec['step_ms_p50']:.3f} ms, "
+              f"{rec['frames_per_s']:.0f} frames/s, {rec['model_tflops']:.3f} model "
+              f"TFLOP/s ({100 * rec['peak_share']:.2f} % of peak) [{smi_now}]", flush=True)
 
     # the kernels line
     meta = {
         "gcn_core": ("stgx_torch/csrc/gcn_core.cu", "stgx/ops/pallas_gcn.py:76"),
         "window_sum": ("stgx_torch/csrc/window_sum.cu", "stgx/ops/pallas_acc.py:60"),
         "rt_fused": ("stgx_torch/csrc/rt_fused.cu", "stgx/ops/rt_fused.py:122"),
+        "gcn_grads": ("stgx_torch/csrc/gcn_grads.cu", "stgx/ops/pallas_gcn.py:137"),
+        "rt_fused_bwd": ("stgx_torch/csrc/rt_fused_bwd.cu", "stgx/ops/rt_fused.py:217"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -424,8 +743,10 @@ def run() -> int:
             "bound_by": "bytes" if r["_tb"] >= r["_to"] else "operations",
             "library_ms": r["library_ms"],
         })
-    print("kernel times are summed over the 9 layers of one fp32 batch forward "
-          f"(N={N_BATCH}, L={L_BATCH})", flush=True)
+    print("kernel times are summed over the 9 layers at fp32: the forward kernels at "
+          f"one batch forward's shapes (N={N_BATCH}, L={L_BATCH}), the backward ones at "
+          f"one train step's (N={N_TRAIN}, L={L_TRAIN}); launches are those of the "
+          f"serving and training paths", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,21 @@ layout and its parameter shapes, so JAX parameters load by renaming alone
 Layout:
   stgx_torch.graph     skeleton graph builder (its own copy of stgx.graph)
   stgx_torch.kernels   nvcc build of ``csrc/*.cu`` and the ctypes binding
-  stgx_torch.ops       norms, graph conv, window-sum, the fused RT-layer core
+  stgx_torch.ops       norms, graph conv, window-sum, the fused RT-layer core,
+                       and their gradients (autograd Functions)
   stgx_torch.models    RT-ST-GCN: batch form and streaming cell
   stgx_torch.weights   JAX parameter tree -> the port's ``state_dict``
   stgx_torch.config    config loading and the model builder
-  stgx_torch.bench     streaming latency and the B-stream serving cell
+  stgx_torch.utils     loss, top-k statistics, MACs and byte counters
+  stgx_torch.data      the directory dataset and the synthetic generator
+  stgx_torch.parallel  length buckets and the one-device Trainer
+  stgx_torch.bench     streaming latency, the B-stream serving cell and
+                       train-step throughput
 
 Every op that has a hand-written kernel launches it for a CUDA tensor and
-uses its plain PyTorch version only for a CPU tensor. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+uses its plain PyTorch version only for a CPU tensor; its backward does the
+same with the backward kernels. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -119,6 +119,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stgx_window_sum.restype = i
     lib.stgx_rt_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused.restype = i
+    lib.stgx_gcn_grads.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i,
+                                   i, p]
+    lib.stgx_gcn_grads.restype = i
+    lib.stgx_rt_fused_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                      i, i, i, i, i, i, i, i, p]
+    lib.stgx_rt_fused_bwd.restype = i
     lib.stgx_error_string.argtypes = [i]
     lib.stgx_error_string.restype = ctypes.c_char_p
     return lib

@@ -43,12 +43,27 @@ from stgx_torch.ops.temporal import (
 )
 
 __all__ = [
+    "dropout",
     "RtLayer",
     "RtStgcn",
     "init_stream_state",
     "stream_step",
     "stream_sequence",
 ]
+
+
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """Inverted dropout as flax's ``nn.Dropout``: keep each element with
+    probability ``1 − rate`` and scale the kept ones by ``1 / (1 − rate)``.
+    The keep-mask comes from ``generator``, which the caller owns."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class RtLayer(nn.Module):
@@ -76,9 +91,12 @@ class RtLayer(nn.Module):
             self.res_norm = make_norm(normalization, out_channels, num_joints)
         self.gcn = GraphConv(in_channels, out_channels, partitions, generator)
         self.norm = make_norm(normalization, out_channels, num_joints)
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+        self.dropout = float(dropout)
 
-    def forward(self, x, A, mask=None):
+    def forward(self, x, A, mask=None, train: bool = False,
+                generator: torch.Generator | None = None):
+        """``train`` turns dropout on; its keep-mask is drawn from
+        ``generator`` (on x's device), never from the global RNG."""
         if not self.residual:
             res = 0.0
         elif self.identity:
@@ -94,8 +112,8 @@ class RtLayer(nn.Module):
         x = x + res
         if self.residual:
             x = torch.relu(x)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if train and self.dropout > 0:
+            x = dropout(x, self.dropout, generator)
         return x
 
 
@@ -158,11 +176,15 @@ class RtStgcn(nn.Module):
     def layer_A(self, i: int):
         return self.A * self.edge_importance[i] if self.importance else self.A
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train: bool = False,
+                generator: torch.Generator | None = None):
+        """Per-frame logits. ``train`` turns dropout on, with its masks drawn
+        from ``generator`` (see :func:`dropout`)."""
         x = self.norm_in(x, mask=mask)
         x = self.fcn_in(x)
         for i, layer in enumerate(self.layers):
-            x = layer(x, self.layer_A(i), mask=mask)
+            x = layer(x, self.layer_A(i), mask=mask, train=train,
+                      generator=generator)
         x = x.mean(dim=2)  # pool joints only: (N, L, C)
         return self.fcn_out(x)
 

@@ -14,6 +14,14 @@ Numerics: A and W are taken in x's type, as the TPU kernel took them; the
 aggregate stays fp32 into the channel product and everything sums in fp32;
 y is written in x's type. The conv bias stays outside (see
 :func:`stgx_torch.ops.graph_conv.partitioned_gcn`).
+
+Gradient: :func:`gcn_core` is a ``torch.autograd.Function``, the port of
+the JAX ``custom_vjp`` (``_core_fwd``/``_core_bwd``). Its backward runs the
+same kernel on ``(g, Aᵀ, Wᵀ)`` for ``gx`` (skipped where x needs no
+gradient) and :func:`stgx_torch.ops.gcn_grads.gcn_grads` for ``(gA, gW)``;
+on the CPU both take their plain versions, so the CPU tests run the
+backward decomposition the card runs. A and W are cast to x's type before
+the Function, so autograd carries their gradients back through the cast.
 """
 
 from __future__ import annotations
@@ -21,19 +29,71 @@ from __future__ import annotations
 import torch
 
 from stgx_torch import kernels
+from stgx_torch.ops.gcn_grads import gcn_grads
 
 __all__ = ["gcn_core", "gcn_core_plain"]
 
 
 def gcn_core_plain(x, A, W):
-    """The plain PyTorch version: the same function in two fp32 einsums."""
+    """The plain PyTorch version: the same function in two fp32 einsums
+    (fp64 ones for fp64 input)."""
     dt = x.dtype
-    t = torch.einsum("rvc,pvw->rwpc", x.float(), A.to(dt).float())
-    return torch.einsum("rwpc,pcd->rwd", t, W.to(dt).float()).to(dt)
+    acc = torch.promote_types(dt, torch.float32)
+    t = torch.einsum("rvc,pvw->rwpc", x.to(acc), A.to(dt).to(acc))
+    return torch.einsum("rwpc,pcd->rwd", t, W.to(dt).to(acc)).to(dt)
+
+
+def _core(x, A, W):
+    """The forward on its device: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor (A and W already in x's type)."""
+    if x.device.type == "cpu":
+        return gcn_core_plain(x, A, W)
+    r, v, _ = x.shape
+    p, _, cout = W.shape
+    if v > 32 or p > 4:
+        raise ValueError(f"gcn_core: the kernel takes V <= 32, P <= 4 (got {v}, {p})")
+    A = A.contiguous()
+    W = W.contiguous()
+    code = kernels.validate("gcn_core", x, A, W)
+    y = torch.empty((r, v, cout), dtype=x.dtype, device=x.device)
+    if r == 0:
+        return y
+    rc = kernels.load().stgx_gcn_core(
+        x.data_ptr(), A.data_ptr(), W.data_ptr(), y.data_ptr(),
+        r, v, p, x.shape[2], cout, code, kernels.stream_handle(),
+    )
+    kernels.check(rc, "gcn_core")
+    gcn_core.launches += 1
+    return y
+
+
+class _GcnCore(torch.autograd.Function):
+    """``custom_vjp`` of the core: forward and both backward halves on the
+    kernels (or, on the CPU, their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, x, A, W):
+        ctx.save_for_backward(x, A, W)
+        return _core(x, A, W)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, A, W = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        gx = gA = gW = None
+        if ctx.needs_input_grad[0]:
+            # gx[r,v,c] = Σ_{p,w,d} g[r,w,d]·A[p,v,w]·W[p,c,d]: the core on
+            # the transposed operands
+            gx = _core(g, A.transpose(1, 2).contiguous(),
+                       W.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            ga, gw = gcn_grads(x, g, A, W)
+            gA, gW = ga.to(A.dtype), gw.to(W.dtype)
+        return gx, gA, gW
 
 
 def gcn_core(x, A, W):
-    """Fused partitioned graph-conv core.
+    """Fused partitioned graph-conv core, differentiable.
 
     Args:
         x: ``(R, V, C_in)`` rows (R = N·L in the batch form, B streams in
@@ -42,7 +102,8 @@ def gcn_core(x, A, W):
         W: ``(P, C_in, C_out)``.
 
     Returns ``(R, V, C_out)`` in x's type. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel.
+    version; a CUDA tensor launches the kernel. ``gcn_core.launches``
+    counts the kernel's launches, the backward's ``gx`` ones included.
     """
     if x.dim() != 3 or A.dim() != 3 or W.dim() != 3:
         raise ValueError("gcn_core: x (R,V,C_in), A (P,V,V), W (P,C_in,C_out)")
@@ -53,25 +114,9 @@ def gcn_core(x, A, W):
             f"gcn_core: shapes x {tuple(x.shape)}, A {tuple(A.shape)}, "
             f"W {tuple(W.shape)} do not agree"
         )
-    if x.device.type == "cpu":
-        return gcn_core_plain(x, A, W)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gcn_core: no kernel for device {x.device}")
-    if v > 32 or p > 4:
-        raise ValueError(f"gcn_core: the kernel takes V <= 32, P <= 4 (got {v}, {p})")
-    A = A.to(x.dtype).contiguous()
-    W = W.to(x.dtype).contiguous()
-    code = kernels.validate("gcn_core", x, A, W)
-    y = torch.empty((r, v, cout), dtype=x.dtype, device=x.device)
-    if r == 0:
-        return y
-    rc = kernels.load().stgx_gcn_core(
-        x.data_ptr(), A.data_ptr(), W.data_ptr(), y.data_ptr(),
-        r, v, p, cin, cout, code, kernels.stream_handle(),
-    )
-    kernels.check(rc, "gcn_core")
-    gcn_core.launches += 1
-    return y
+    return _GcnCore.apply(x, A.to(x.dtype), W.to(x.dtype))
 
 
 gcn_core.launches = 0

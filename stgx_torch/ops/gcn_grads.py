@@ -1,0 +1,111 @@
+"""Parameter gradients of the graph-conv core, summed over all rows:
+
+    gA[p,v,w] = Σ_{r,c,d} x[r,v,c]·g[r,w,d]·W[p,c,d]      (P, V, V)
+    gW[p,c,d] = Σ_{r,v,w} x[r,v,c]·A[p,v,w]·g[r,w,d]      (P, C_in, C_out)
+
+Replaces the TPU kernel ``stgx/ops/pallas_gcn.py:_grads_kernel`` (launched
+by ``_grads_impl``) with the hand-written CUDA kernel ``csrc/gcn_grads.cu``.
+
+Bound on the H100: operations. A row costs ``4·P·V·C_in·(V + C_out)``
+flops, twice the forward's, against ``(C_in + C_out)·V`` values read; the
+outputs are small. The design answer, in the source's note: the TPU kernel
+carried both sums in VMEM across a sequential row grid; here each block
+sums one split of the rows into an fp32 partial in a workspace this wrapper
+allocates, and a last pass adds the partials in split order, so the result
+is the same from run to run (no atomics).
+
+Numerics: A and W are taken in x's type, as the TPU kernel took them; every
+product sums in fp32 and both gradients come back in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stgx_torch import kernels
+
+__all__ = ["gcn_grads", "gcn_grads_plain", "grads_splits", "grads_workspaces"]
+
+TILE = 64  # output tile edge of the grads kernels (csrc/grads.cuh: kGT)
+_BLOCKS = 2 * 132  # two resident blocks on each of the H100's 132 SMs
+
+
+def grads_splits(rows: int, cin: int, cout: int):
+    """``(splits_w, splits_a)``: how many row splits the gW and the gA
+    kernels take, so that each launches at most two blocks for each of the
+    132 SMs (both kernels hold two blocks an SM), never a partial second
+    round."""
+    ct, dt = -(-cin // TILE), -(-cout // TILE)
+    splits_w = max(1, min(rows, _BLOCKS // (ct * dt), 65535))
+    splits_a = max(1, min(rows, _BLOCKS // ct, 65535))
+    return splits_w, splits_a
+
+
+def grads_workspaces(rows, v, p, cin, cout, device, gbe: bool = False):
+    """The fp32 partial-sum workspaces of the grads kernels (sizes as in
+    ``csrc/grads.cuh``) and the split counts they were sized for."""
+    splits_w, splits_a = grads_splits(rows, cin, cout)
+    ct = -(-cin // TILE)
+
+    def ws(n):
+        return torch.empty(n, dtype=torch.float32, device=device)
+
+    return (splits_w, splits_a, ws(splits_w * p * cin * cout),
+            ws(splits_a * ct * p * v * v), ws(splits_w * v * cout) if gbe else None)
+
+
+def gcn_grads_plain(x, g, A, W):
+    """The plain PyTorch version: two fp32 einsums, A and W rounded to x's
+    type first (g is taken as it comes)."""
+    dt = x.dtype
+    xf, gf = x.float(), g.float()
+    Af, Wf = A.to(dt).float(), W.to(dt).float()
+    gW = torch.einsum("rvc,pvw,rwd->pcd", xf, Af, gf)
+    gA = torch.einsum("rvc,rwd,pcd->pvw", xf, gf, Wf)
+    return gA, gW
+
+
+def gcn_grads(x, g, A, W):
+    """``(gA, gW)`` in fp32 for ``x (R, V, C_in)``, ``g (R, V, C_out)``,
+    ``A (P, V, V)``, ``W (P, C_in, C_out)``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if x.dim() != 3 or g.dim() != 3 or A.dim() != 3 or W.dim() != 3:
+        raise ValueError("gcn_grads: x (R,V,C_in), g (R,V,C_out), A (P,V,V), "
+                         "W (P,C_in,C_out)")
+    r, v, cin = x.shape
+    p, _, cout = W.shape
+    if A.shape != (p, v, v) or W.shape[1] != cin or g.shape != (r, v, cout):
+        raise ValueError(
+            f"gcn_grads: shapes x {tuple(x.shape)}, g {tuple(g.shape)}, "
+            f"A {tuple(A.shape)}, W {tuple(W.shape)} do not agree"
+        )
+    if x.device.type == "cpu":
+        return gcn_grads_plain(x, g, A, W)
+    if x.device.type != "cuda":
+        raise ValueError(f"gcn_grads: no kernel for device {x.device}")
+    if v > 32 or p > 4:
+        raise ValueError(f"gcn_grads: the kernel takes V <= 32, P <= 4 (got {v}, {p})")
+    g = g.to(x.dtype).contiguous()
+    A = A.to(x.dtype).contiguous()
+    W = W.to(x.dtype).contiguous()
+    code = kernels.validate("gcn_grads", x, g, A, W)
+    if r == 0:
+        return (torch.zeros((p, v, v), dtype=torch.float32, device=x.device),
+                torch.zeros((p, cin, cout), dtype=torch.float32, device=x.device))
+    gA = torch.empty((p, v, v), dtype=torch.float32, device=x.device)
+    gW = torch.empty((p, cin, cout), dtype=torch.float32, device=x.device)
+    splits_w, splits_a, ws_w, ws_a, _ = grads_workspaces(r, v, p, cin, cout,
+                                                         x.device)
+    rc = kernels.load().stgx_gcn_grads(
+        x.data_ptr(), g.data_ptr(), A.data_ptr(), W.data_ptr(), gA.data_ptr(),
+        gW.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(), r, v, p, cin, cout,
+        splits_w, splits_a, code, kernels.stream_handle(),
+    )
+    kernels.check(rc, "gcn_grads")
+    gcn_grads.launches += 1
+    return gA, gW
+
+
+gcn_grads.launches = 0

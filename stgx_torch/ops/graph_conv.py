@@ -44,5 +44,8 @@ def partitioned_gcn(x, A, W, b=None):
     n, l, v, c = x.shape
     y = gcn_core(x.reshape(n * l, v, c), A, W).reshape(n, l, v, W.shape[-1])
     if b is not None:
-        y = y + torch.einsum("pvw,pd->wd", A, b).to(y.dtype)
+        # in fp32 (fp64 for fp64 y), as JAX promotes an fp32 A against a
+        # bf16 b
+        acc = torch.promote_types(y.dtype, torch.float32)
+        y = y + torch.einsum("pvw,pd->wd", A.to(acc), b.to(acc)).to(y.dtype)
     return y

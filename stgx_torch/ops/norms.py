@@ -11,7 +11,7 @@ The port of ``stgx/ops/norms.py``. Two norms exist in the model family:
   over N, L); a layer's norm treats c as the channel (stats over N, L, V).
 
 Both take an optional boolean frame mask ``(N, L)`` so padded frames do not
-enter the statistics. Statistics are taken in fp32 under bf16 compute.
+enter the statistics. Statistics are taken in fp32 under bf16 compute (in fp64 for fp64 input).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
         weight, bias: ``(V, C)``.
     """
     dt = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dt, torch.float32))
     n = x.shape[-1] * x.shape[-2]
     mean = x.mean(dim=(-2, -1), keepdim=True)
     centered = x - mean
@@ -50,7 +50,7 @@ def batch_norm(x, weight, bias, axes, eps: float = 1e-5, mask=None):
         mask: optional ``(N, L)`` bool; masked-out frames leave the stats.
     """
     dt = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dt, torch.float32))
     axes = tuple(axes)
     if mask is None:
         mean = x.mean(dim=axes, keepdim=True)

@@ -16,6 +16,19 @@ Numerics: the bias enters before the window-sum (frames before t=0 stay
 zero, the empty-FIFO edge), and the window sums in fp32 before the one cast
 to x's type, as the TPU kernel did.
 
+Gradient: :func:`rt_fused_core` is a ``torch.autograd.Function``, the port
+of the JAX ``custom_vjp`` (``_rt_fwd``/``_rt_bwd``). Its backward is
+:func:`rt_fused_bwd`, the hand-written CUDA kernel ``csrc/rt_fused_bwd.cu``
+that replaces ``stgx/ops/rt_fused.py:_bwd_kernel`` (launched by
+``_bwd_call``). It returns ``(gx, gA, gW, gbe)``: the anti-causal
+window-sum ``gy`` of the upstream gradient is formed in shared memory and
+never written, ``gx`` is the graph conv of ``gy`` on ``(Aᵀ, Wᵀ)``, and
+``gA``, ``gW`` and ``gbe = Σ gy`` are fp32 sums over all frames, taken as
+per-block partials and added in a fixed order (no atomics). Bound on the
+H100: operations, ``2·P·V·(2·C_in·C_out + 3·V·C_in)`` flops a frame for
+``(gx, gA, gW)`` against x and g read and gx written. ``beff`` is formed
+outside the Function, so autograd routes ``gbe`` to A and b, as in JAX.
+
 :func:`rt_fused_gcn_acc` keeps the JAX package's dispatch rule
 (``stgx/ops/rt_fused.py:398-405``): when the halo exceeds the TPU kernel's
 smallest time tile, the unfused chain runs instead, which on the card is
@@ -28,6 +41,7 @@ import torch
 
 from stgx_torch import kernels
 from stgx_torch.ops.gcn_core import gcn_core_plain
+from stgx_torch.ops.gcn_grads import gcn_grads_plain, grads_workspaces
 from stgx_torch.ops.graph_conv import partitioned_gcn
 from stgx_torch.ops.temporal import causal_accumulate
 from stgx_torch.ops.window_sum import window_sum_plain
@@ -36,6 +50,8 @@ __all__ = [
     "rt_fused_gcn_acc",
     "rt_fused_core",
     "rt_fused_plain",
+    "rt_fused_bwd",
+    "rt_fused_bwd_plain",
     "set_rt_fused",
     "rt_fused_enabled",
 ]
@@ -72,32 +88,15 @@ def rt_fused_plain(x, A, W, beff, gamma: int, stride: int):
     return window_sum_plain(z, gamma, stride).to(x.dtype)
 
 
-def rt_fused_core(x, A, W, beff, gamma: int, stride: int):
-    """``window_sum(gcn(x, A, W) + beff)`` over ``(N, L, V, C_in)``.
-
-    ``beff`` is the ``(V, C_out)`` effective bias. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel.
-    """
-    if x.dim() != 4:
-        raise ValueError(f"rt_fused: x must be (N, L, V, C), got {tuple(x.shape)}")
-    n, l, v, cin = x.shape
-    p, _, cout = W.shape
-    if A.shape != (p, v, v) or W.shape[1] != cin or beff.shape != (v, cout):
-        raise ValueError(
-            f"rt_fused: shapes x {tuple(x.shape)}, A {tuple(A.shape)}, "
-            f"W {tuple(W.shape)}, beff {tuple(beff.shape)} do not agree"
-        )
+def _fwd(x, A, W, beff, gamma: int, stride: int):
+    """The forward on its device: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor (A and W already in x's type)."""
     if x.device.type == "cpu":
         return rt_fused_plain(x, A, W, beff, gamma, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"rt_fused: no kernel for device {x.device}")
-    if v > 32 or p > 4 or n > 65535:
-        raise ValueError(
-            f"rt_fused: the kernel takes V <= 32, P <= 4, N <= 65535 "
-            f"(got {v}, {p}, {n})"
-        )
-    A = A.to(x.dtype).contiguous()
-    W = W.to(x.dtype).contiguous()
+    n, l, v, cin = x.shape
+    p, _, cout = W.shape
+    A = A.contiguous()
+    W = W.contiguous()
     beff = beff.to(x.dtype).contiguous()
     code = kernels.validate("rt_fused", x, A, W, beff)
     y = torch.empty((n, l, v, cout), dtype=x.dtype, device=x.device)
@@ -111,6 +110,118 @@ def rt_fused_core(x, A, W, beff, gamma: int, stride: int):
     kernels.check(rc, "rt_fused")
     rt_fused_core.launches += 1
     return y
+
+
+def rt_fused_bwd_plain(x, g, A, W, gamma: int, stride: int):
+    """The plain PyTorch version of the backward: the anti-causal window-sum
+    of g in fp32, the graph conv of it on the transposes, the two parameter
+    gradients, and its sum for ``gbe``. Returns ``(gx, gA, gW, gbe)``."""
+    dt = x.dtype
+    n, l, v, cin = x.shape
+    cout = W.shape[-1]
+    gy = window_sum_plain(g.float(), gamma, stride, reverse=True)
+    rows = gy.reshape(n * l, v, cout)
+    gx = gcn_core_plain(rows, A.to(dt).transpose(1, 2), W.to(dt).transpose(1, 2))
+    gA, gW = gcn_grads_plain(x.reshape(n * l, v, cin), rows, A, W)
+    return gx.reshape(n, l, v, cin).to(dt), gA, gW, gy.sum(dim=(0, 1))
+
+
+def rt_fused_bwd(x, g, A, W, gamma: int, stride: int, need_gx: bool = True):
+    """``(gx, gA, gW, gbe)`` of :func:`rt_fused_core` for the upstream
+    gradient ``g (N, L, V, C_out)``: gx in x's type (None unless
+    ``need_gx``), the rest fp32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    n, l, v, cin = x.shape
+    p, _, cout = W.shape
+    if g.shape != (n, l, v, cout) or A.shape != (p, v, v) or W.shape[1] != cin:
+        raise ValueError(
+            f"rt_fused_bwd: shapes x {tuple(x.shape)}, g {tuple(g.shape)}, "
+            f"A {tuple(A.shape)}, W {tuple(W.shape)} do not agree"
+        )
+    if x.device.type == "cpu":
+        gx, gA, gW, gbe = rt_fused_bwd_plain(x, g, A, W, gamma, stride)
+        return (gx if need_gx else None), gA, gW, gbe
+    if x.device.type != "cuda":
+        raise ValueError(f"rt_fused_bwd: no kernel for device {x.device}")
+    if v > 32 or p > 4:
+        raise ValueError(f"rt_fused_bwd: the kernel takes V <= 32, P <= 4 (got {v}, {p})")
+    g = g.to(x.dtype).contiguous()
+    A = A.to(x.dtype).contiguous()
+    W = W.to(x.dtype).contiguous()
+    code = kernels.validate("rt_fused_bwd", x, g, A, W)
+    rows = n * l
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return ((torch.empty_like(x) if need_gx else None),
+                torch.zeros((p, v, v), **f32), torch.zeros((p, cin, cout), **f32),
+                torch.zeros((v, cout), **f32))
+    gx = torch.empty_like(x) if need_gx else None
+    gA = torch.empty((p, v, v), **f32)
+    gW = torch.empty((p, cin, cout), **f32)
+    gbe = torch.empty((v, cout), **f32)
+    splits_w, splits_a, ws_w, ws_a, ws_be = grads_workspaces(
+        rows, v, p, cin, cout, x.device, gbe=True)
+    taps = max(1, gamma // stride)
+    rc = kernels.load().stgx_rt_fused_bwd(
+        x.data_ptr(), g.data_ptr(), A.data_ptr(), W.data_ptr(),
+        gx.data_ptr() if need_gx else None, gA.data_ptr(), gW.data_ptr(),
+        gbe.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(), ws_be.data_ptr(),
+        n, l, v, p, cin, cout, taps, stride, splits_w, splits_a, code,
+        kernels.stream_handle(),
+    )
+    kernels.check(rc, "rt_fused_bwd")
+    rt_fused_bwd.launches += 1
+    return gx, gA, gW, gbe
+
+
+rt_fused_bwd.launches = 0
+
+
+class _RtCore(torch.autograd.Function):
+    """``custom_vjp`` of the fused core: forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, A, W, beff, gamma, stride):
+        ctx.save_for_backward(x, A, W)
+        ctx.args = (gamma, stride, beff.dtype)
+        return _fwd(x, A, W, beff, gamma, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, A, W = ctx.saved_tensors
+        gamma, stride, be_dtype = ctx.args
+        gx, gA, gW, gbe = rt_fused_bwd(x, g, A, W, gamma, stride,
+                                       need_gx=ctx.needs_input_grad[0])
+        return gx, gA.to(A.dtype), gW.to(W.dtype), gbe.to(be_dtype), None, None
+
+
+def rt_fused_core(x, A, W, beff, gamma: int, stride: int):
+    """``window_sum(gcn(x, A, W) + beff)`` over ``(N, L, V, C_in)``,
+    differentiable.
+
+    ``beff`` is the ``(V, C_out)`` effective bias. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel, and its backward the
+    backward kernel.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"rt_fused: x must be (N, L, V, C), got {tuple(x.shape)}")
+    n, l, v, cin = x.shape
+    p, _, cout = W.shape
+    if A.shape != (p, v, v) or W.shape[1] != cin or beff.shape != (v, cout):
+        raise ValueError(
+            f"rt_fused: shapes x {tuple(x.shape)}, A {tuple(A.shape)}, "
+            f"W {tuple(W.shape)}, beff {tuple(beff.shape)} do not agree"
+        )
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rt_fused: no kernel for device {x.device}")
+    if x.device.type == "cuda" and (v > 32 or p > 4 or n > 65535):
+        raise ValueError(
+            f"rt_fused: the kernel takes V <= 32, P <= 4, N <= 65535 "
+            f"(got {v}, {p}, {n})"
+        )
+    return _RtCore.apply(x, A.to(x.dtype), W.to(x.dtype), beff, gamma, stride)
 
 
 rt_fused_core.launches = 0

@@ -14,6 +14,11 @@ TPU kernel there is no limit on ``(K − 1)·s``.
 
 Numerics: the taps sum in fp32 in the order ``j = 0, 1, …`` and the result
 is cast once to x's type.
+
+Gradient: :func:`window_sum` is a ``torch.autograd.Function``, the port of
+the JAX ``custom_vjp`` (``_acc_fwd``/``_acc_bwd``): its backward is the same
+kernel in the other direction. ``K ≤ 1`` stays the identity, with the
+identity as its gradient.
 """
 
 from __future__ import annotations
@@ -26,12 +31,13 @@ __all__ = ["window_sum", "window_sum_plain"]
 
 
 def window_sum_plain(x, kernel_size: int, stride: int, reverse: bool = False):
-    """The plain PyTorch version: K shifted adds over the time axis in fp32."""
+    """The plain PyTorch version: K shifted adds over the time axis in fp32
+    (fp64 for fp64 input)."""
     k = kernel_size // stride
     if k <= 1:
         return x
     l = x.shape[1]
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     y = xf.clone()
     for j in range(1, k):
         o = j * stride
@@ -44,21 +50,11 @@ def window_sum_plain(x, kernel_size: int, stride: int, reverse: bool = False):
     return y.to(x.dtype)
 
 
-def window_sum(x, kernel_size: int, stride: int, reverse: bool = False):
-    """Window-sum of ``(N, L, V, C)`` over L with ``Γ // s`` taps ``s`` apart.
-
-    ``K ≤ 1`` returns x itself. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel.
-    """
-    if x.dim() != 4:
-        raise ValueError(f"window_sum: x must be (N, L, V, C), got {tuple(x.shape)}")
-    k = kernel_size // stride
-    if k <= 1:
-        return x
+def _window(x, k: int, stride: int, reverse: bool):
+    """The window-sum on its device: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor (K > 1)."""
     if x.device.type == "cpu":
-        return window_sum_plain(x, kernel_size, stride, reverse)
-    if x.device.type != "cuda":
-        raise ValueError(f"window_sum: no kernel for device {x.device}")
+        return window_sum_plain(x, k * stride, stride, reverse)
     code = kernels.validate("window_sum", x)
     n, l, v, c = x.shape
     y = torch.empty_like(x)
@@ -71,6 +67,38 @@ def window_sum(x, kernel_size: int, stride: int, reverse: bool = False):
     kernels.check(rc, "window_sum")
     window_sum.launches += 1
     return y
+
+
+class _WindowSum(torch.autograd.Function):
+    """``custom_vjp`` of the window-sum: the VJP of one direction is the
+    other direction."""
+
+    @staticmethod
+    def forward(ctx, x, k, stride, reverse):
+        ctx.args = (k, stride, reverse)
+        return _window(x, k, stride, reverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        k, stride, reverse = ctx.args
+        return _window(g.contiguous(), k, stride, not reverse), None, None, None
+
+
+def window_sum(x, kernel_size: int, stride: int, reverse: bool = False):
+    """Window-sum of ``(N, L, V, C)`` over L with ``Γ // s`` taps ``s`` apart,
+    differentiable.
+
+    ``K ≤ 1`` returns x itself. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"window_sum: x must be (N, L, V, C), got {tuple(x.shape)}")
+    k = kernel_size // stride
+    if k <= 1:
+        return x
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_sum: no kernel for device {x.device}")
+    return _WindowSum.apply(x, k, stride, bool(reverse))
 
 
 window_sum.launches = 0

@@ -43,6 +43,9 @@ def test_port_imports_nothing_of_jax_or_stgx():
     modules = sorted(m.name for m in pkgutil.walk_packages(stgx_torch.__path__,
                                                           "stgx_torch."))
     assert "stgx_torch.bench.serving" in modules and "stgx_torch.weights" in modules
+    assert {"stgx_torch.parallel.loop", "stgx_torch.ops.gcn_grads",
+            "stgx_torch.bench.train_throughput", "stgx_torch.data.synth",
+            "stgx_torch.utils.loss"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *(f"importlib.import_module({m!r})" for m in modules),
@@ -96,7 +99,8 @@ def test_build_compiles_each_source_for_sm90a_and_links_one_library(fake_nvcc):
     assert lib.is_file()
     calls = fake_nvcc.read_text().splitlines()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert sources == ["gcn_core.cu", "rt_fused.cu", "window_sum.cu"]
+    assert sources == ["gcn_core.cu", "gcn_grads.cu", "rt_fused.cu",
+                       "rt_fused_bwd.cu", "window_sum.cu"]
     compiles = [c for c in calls if " -c " in c]
     assert sorted(Path(c.split(" -c ")[1].split()[0]).name for c in compiles) == sources
     assert all("arch=compute_90a,code=sm_90a" in c and "-fPIC" in c for c in compiles)
