@@ -22,7 +22,20 @@ The training path follows: synthetic PKU-MMD trials through the port's
 unfused and fused, with the exact launches of each step, the first step's
 gradients against the all-plain run in float64, and a falling CE; then
 ``stgx_torch.bench.train_throughput`` at 8 x 1024 frames in fp32 and bf16,
-unfused and fused. Each phase prints its seconds.
+unfused and fused.
+
+Shift-GCN follows, at its PKU-MMD width (``configs/pku-mmd/as_is/shiftgcn.json``,
+W = 50, random weights from the config's seed): the ``temporal_shift``
+kernel against its plain version at the seven shapes of its 20 launches per
+forward; the offline forward of 1024 windows (exactly 20 launches, logits
+against the all-plain run); the window streaming cell at B = 1 (20 launches
+a step, logits against the all-plain cell; under LayerNorm the streamed
+logits of frame t equal the offline logits of window t); the ``window``
+``Trainer`` on synthetic trials cut into chunks of ``SG_SEGMENT`` windows
+(20 launches a chunk step, the first step's gradients against the all-plain
+run in float64, a falling CE); and ``train_throughput`` for Shift-GCN in
+fp32 and bf16. Peak device memory of the offline forward and of a train
+step is printed. Each phase prints its seconds.
 
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -51,6 +64,15 @@ TRAIN_TRIALS, TRAIN_LEN, TRAIN_BS, TRAIN_EPOCHS = 8, (512, 2048), 4, 3
 B_STREAM, L_STREAM = 64, 256  # streaming check: streams x frames
 SEED = 0
 
+SG_CONFIG = "configs/pku-mmd/as_is/shiftgcn.json"
+SG_WINDOWS = 1024  # offline forward: windows of one capture, one per frame
+SG_STREAM = 256  # window streaming cell at B = 1: frames
+SG_LN_FRAMES = 96  # LayerNorm streamed == offline: frames
+# window Trainer: synthetic PKU-MMD trials of 300-700 frames in chunks of
+# SG_SEGMENT windows (buckets of the same size), one Adam step per 2 trials
+SG_TRIALS, SG_LEN, SG_BS, SG_EPOCHS, SG_SEGMENT = 4, (300, 700), 2, 3, 256
+SG_THROUGHPUT_WINDOWS = 256  # train_throughput: windows a step
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -74,6 +96,16 @@ TOL_FP32, TOL_BF16, TOL_MODEL = 1e-4, 1e-2, 1e-4
 # (plus TOL_FORMS): the kernels are never the less accurate side. TOL_FORMS
 # holds the fused and the unfused kernel runs against each other.
 TOL_GRAD, TOL_FORMS, GRAD_VS_PLAIN = 5e-4, 1e-5, 2.0
+# Shift-GCN's first-step gradients against float64. Any fp32 run sits far
+# from the exact value here: on the card the kernel run and the fp32
+# all-plain run are both 6.84e-3 from it at worst (units.8.temporal
+# .linear_kernel) and 1.7e-6 from each other, the kernels' only difference
+# being the temporal shift's forward (the same bits as its plain version in
+# fp32) and its closed-form backward. TOL_GRAD_SG is about twice that
+# reading; the per-parameter GRAD_VS_PLAIN check is the one that would
+# catch a kernel. The gradients that are zero in exact arithmetic (biases
+# feeding a batch norm) are held to TOL_GRAD of the model's largest.
+TOL_GRAD_SG = 1.5e-2
 
 
 class SmokeFailure(Exception):
@@ -122,15 +154,18 @@ def plain_ops():
     shifted adds that autograd differentiates itself, so a backward under
     this context runs no kernel either: the autograd Functions whose
     backwards launch gcn_grads and rt_fused_bwd are never entered."""
+    import stgx_torch.models.shiftgcn as sgm
     import stgx_torch.ops.gcn_core as gcm
     import stgx_torch.ops.graph_conv as gconv
     import stgx_torch.ops.rt_fused as rtf
+    import stgx_torch.ops.shift as shm
     import stgx_torch.ops.temporal as temporal
     import stgx_torch.ops.window_sum as wsm
 
     with mock.patch.object(gconv, "gcn_core", gcm.gcn_core_plain), \
             mock.patch.object(temporal, "window_sum", wsm.window_sum_plain), \
-            mock.patch.object(rtf, "rt_fused_core", rtf.rt_fused_plain):
+            mock.patch.object(rtf, "rt_fused_core", rtf.rt_fused_plain), \
+            mock.patch.object(sgm, "temporal_shift", shm.temporal_shift_plain):
         yield
 
 
@@ -138,10 +173,12 @@ def _wrappers():
     from stgx_torch.ops.gcn_core import gcn_core
     from stgx_torch.ops.gcn_grads import gcn_grads
     from stgx_torch.ops.rt_fused import rt_fused_bwd, rt_fused_core
+    from stgx_torch.ops.shift import temporal_shift
     from stgx_torch.ops.window_sum import window_sum
 
     return {"gcn_core": gcn_core, "window_sum": window_sum, "rt_fused": rt_fused_core,
-            "gcn_grads": gcn_grads, "rt_fused_bwd": rt_fused_bwd}
+            "gcn_grads": gcn_grads, "rt_fused_bwd": rt_fused_bwd,
+            "temporal_shift": temporal_shift}
 
 
 def counts():
@@ -405,10 +442,13 @@ def worst_grad_err(got, ref):
     return max((grad_err(got[k], ref[k]), k) for k in ref)
 
 
-def first_step_grads(trainer, batch):
-    """The parameter gradients of one grad step on ``batch``, cleared after."""
+def first_step_grads(trainer, batch, divisors=None):
+    """The parameter gradients of one grad step on ``batch``, cleared after.
+    ``divisors`` defaults to the batch size for each stacked trial."""
     trainer.optimizer.zero_grad(set_to_none=True)
-    trainer.grad_step(*batch, [float(trainer.opt.batch_size)] * batch[0].shape[0])
+    if divisors is None:
+        divisors = [float(trainer.opt.batch_size)] * batch[0].shape[0]
+    trainer.grad_step(*batch, divisors)
     grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
     trainer.optimizer.zero_grad(set_to_none=True)
     return grads
@@ -543,6 +583,269 @@ def throughput_phase():
             records.append(train_throughput.main(argv + (["--fused"] if fused else [])))
     set_rt_fused(False)
     return records
+
+
+# ---------------------------------------------------------------- Shift-GCN
+
+
+def shift_shapes(cfg):
+    """``{(L, C, stride): launches per forward}`` of the temporal shift in a
+    Shift-GCN forward of W-frame windows: two per unit, the second with the
+    unit's stride."""
+    from stgx_torch.config import build_model
+
+    model = build_model(cfg, NUM_CLASSES, device="cpu")
+    shapes, l = {}, cfg["arch"]["receptive_field"]
+    for unit in model.units:
+        c = unit.temporal.shift_in.shape[0]
+        shapes[(l, c, 1)] = shapes.get((l, c, 1), 0) + 1
+        shapes[(l, c, unit.stride)] = shapes.get((l, c, unit.stride), 0) + 1
+        l = -(-l // unit.stride)
+    return shapes
+
+
+def shift_kernel_phase(shapes):
+    """The temporal_shift kernel against its plain version at each shape of
+    the Shift-GCN forward, SG_WINDOWS windows, fp32 and bf16, with shifts
+    that are integers, negative, fractional, exactly +-8 and beyond +-8.
+    Returns its record of the ``kernels`` line: times and bounds summed over
+    one forward's launches (each shape times its launches)."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.ops.shift import temporal_shift, temporal_shift_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rng = np.random.default_rng(SEED)
+    cases = [0.0, 1.0, -2.0, 3.0, 0.25, -0.75, 2.5, -3.3, 8.0, -8.0, 9.7, -12.0, 7.6,
+             -7.9, 0.5, 5.01]
+    recs = {}
+    print("temporal_shift vs plain (csrc/temporal_shift.cu)", flush=True)
+    for (l, c, s), count in shapes.items():
+        shift = rng.uniform(-10.0, 10.0, size=c).astype(np.float32)
+        shift[: len(cases)] = cases
+        shift = torch.tensor(shift, device="cuda")
+        x32 = torch.randn(SG_WINDOWS, l, 25, c, generator=gen, device="cuda")
+        shape = (SG_WINDOWS, l, 25, c, s)
+        errs = {}
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x = x32.to(dt)
+            errs[dt] = compare("temporal_shift", shape, lambda: temporal_shift(x, shift, s),
+                               lambda: temporal_shift_plain(x, shift, s), str(dt)[6:], tol)
+            check_repeatable("temporal_shift", lambda: (temporal_shift(x, shift, s),))
+        ms = time_ms(lambda: temporal_shift(x32, shift, s))
+        plain_ms = time_ms(lambda: temporal_shift_plain(x32, shift, s))
+        lo = -(-l // s)
+        # one read of x and of the shifts, one write of y; 3 operations an
+        # output (two products, one add)
+        nbytes = 4 * (SG_WINDOWS * 25 * c * (l + lo) + c)
+        b = bound(nbytes, 3 * SG_WINDOWS * lo * 25 * c)
+        print(f"  x {count} launches per forward", flush=True)
+        add_record(recs, "temporal_shift", shape, errs[torch.float32], count * ms,
+                   count * plain_ms, None, tuple(count * t for t in b))
+    return recs
+
+
+def shift_serving_phase(cfg):
+    """Shift-GCN serving with the counters at zero: the offline forward of
+    SG_WINDOWS windows and the window streaming cell at B = 1, each against
+    its all-plain run; under LayerNorm the streamed logits against the
+    offline ones. Returns the launch counts of the two."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.bench.streaming import measure_stream_latency
+    from stgx_torch.config import build_model, load_config
+    from stgx_torch.parallel.segments import sliding_windows
+
+    w = cfg["arch"]["receptive_field"]
+    model = build_model(cfg, NUM_CLASSES)
+    capture = torch.tensor(np.random.default_rng(SEED + 3).normal(
+        size=(1, SG_WINDOWS, model.num_joints, model.in_feat)),
+        dtype=torch.float32, device="cuda")
+    windows = sliding_windows(capture, w)[0]
+    none = {k: 0 for k in counts()}
+    parts = {}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    with torch.inference_mode():
+        y = model(windows)
+        torch.cuda.synchronize()
+    parts["offline"] = counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Shift-GCN offline forward, {SG_WINDOWS} windows of {w} frames: launches "
+          f"{json.dumps(parts['offline'])}; peak device memory {peak / 2**20:.1f} MiB "
+          f"({(peak - base) / 2**20:.1f} MiB above the model and input)", flush=True)
+    check(parts["offline"] == {**none, "temporal_shift": 20},
+          f"Shift-GCN offline forward launched {parts['offline']}, want 20 temporal_shift")
+    with torch.inference_mode(), plain_ops():
+        y_plain = model(windows)
+    check(y.shape == (SG_WINDOWS, NUM_CLASSES), f"Shift-GCN logits shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "Shift-GCN offline forward: non-finite logits")
+    err, rel = rel_err(y, y_plain)
+    print(f"Shift-GCN offline forward vs all-plain: max abs err {err:.3e} (relative "
+          f"{rel:.3e}, tolerance {TOL_MODEL:g})", flush=True)
+    check(rel <= TOL_MODEL, f"Shift-GCN offline forward: relative error {rel:.3e}")
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(windows), reps=5, warm=1)
+        with plain_ops():
+            plain_ms = time_ms(lambda: model(windows), reps=5, warm=1)
+    print(f"Shift-GCN offline forward, {SG_WINDOWS} windows, fp32: {ms:.3f} ms "
+          f"({SG_WINDOWS / ms * 1e3:.0f} windows/s); all-plain {plain_ms:.3f} ms", flush=True)
+
+    # the window streaming cell, B = 1, 20 warm-up steps
+    frames = capture[0, :SG_STREAM]
+    reset_counts()
+    mean, p50, p99, logits = measure_stream_latency(model, frames, window=w)
+    parts["streaming"] = counts()
+    logits = torch.as_tensor(logits)
+    steps = 20 + SG_STREAM
+    check(parts["streaming"] == {**none, "temporal_shift": 20 * steps},
+          f"window cell launched {parts['streaming']}, want {20 * steps} temporal_shift")
+    with plain_ops():
+        _, plain_p50, _, logits_plain = measure_stream_latency(model, frames, window=w)
+    logits_plain = torch.as_tensor(logits_plain)
+    check(bool(torch.isfinite(logits).all()), "window cell: non-finite logits")
+    err, rel = rel_err(logits, logits_plain)
+    print(f"Shift-GCN window cell B=1 x {SG_STREAM} frames vs all-plain: max abs err "
+          f"{err:.3e} (relative {rel:.3e}, tolerance {TOL_MODEL:g}); step mean {mean:.4f} "
+          f"ms, p50 {p50:.4f} ms, p99 {p99:.4f} ms; all-plain p50 {plain_p50:.4f} ms",
+          flush=True)
+    check(rel <= TOL_MODEL, f"window cell: relative error {rel:.3e}")
+
+    # LayerNorm takes no batch statistics: frame t streamed == window t offline
+    ln = build_model(load_config(SG_CONFIG, ["arch.normalization=LayerNorm"]), NUM_CLASSES)
+    with torch.inference_mode():
+        y_off = ln(windows[:SG_LN_FRAMES])
+    _, _, _, y_stream = measure_stream_latency(ln, frames[:SG_LN_FRAMES], warmup=1, window=w)
+    err, rel = rel_err(torch.as_tensor(y_stream), y_off.cpu())
+    print(f"LayerNorm Shift-GCN streamed == offline windows, {SG_LN_FRAMES} frames: max "
+          f"abs err {err:.3e} (relative {rel:.3e}, tolerance {TOL_MODEL:g})", flush=True)
+    check(rel <= TOL_MODEL, f"window cell != offline windows under LayerNorm: {rel:.3e}")
+    return parts
+
+
+def float64_window_grads(trainer, chunk, divisor):
+    """A window-kind first step's parameter gradients in float64: a copy of
+    the model and the chunk in float64 through the all-plain path, with the
+    loss and divisor of ``first_step_grads``."""
+    import copy
+
+    import torch
+
+    model = copy.deepcopy(trainer.model).double()
+    x, y, mask = chunk
+    with plain_ops():
+        out = model(x.double(), mask=mask[:, None].expand(x.shape[0], x.shape[1]),
+                    train=True)[None]
+        ce, mse = trainer.loss(out, y[None], mask[None])
+        ((ce + mse) / divisor).backward()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    check(all(g.dtype == torch.float64 for g in grads.values()),
+          "the float64 witness lost its precision")
+    return grads
+
+
+def shift_training_phase(cfg, data_dir):
+    """The window-kind training path at full width: synthetic PKU-MMD trials
+    through the Trainer in chunks of SG_SEGMENT windows. Checks 20 launches
+    a chunk step, the first step's gradients against the all-plain run in
+    float64 and a falling CE; returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.config import build_model
+    from stgx_torch.data import SkeletonDirDataset, class_distribution
+    from stgx_torch.data.synth import generate
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.utils import LOSS
+
+    generate(data_dir, skeleton="pku-mmd", num_classes=NUM_CLASSES, in_feat=3,
+             num_train=SG_TRIALS, num_val=0, min_len=SG_LEN[0], max_len=SG_LEN[1],
+             seed=SEED + 1)
+    ds = SkeletonDirDataset(os.path.join(data_dir, "train", "features"),
+                            os.path.join(data_dir, "train", "labels"))
+    trainer = Trainer(model=build_model(cfg, NUM_CLASSES), kind="window",
+                      loss=LOSS["shift-gcn"](class_distribution(ds, NUM_CLASSES)),
+                      opt=OptimizerConfig(learning_rate=cfg["optimizer"]["learning_rate"],
+                                          batch_size=SG_BS, seed=SEED),
+                      receptive_field=cfg["arch"]["receptive_field"], segment=SG_SEGMENT,
+                      bucket=SG_SEGMENT)
+    chunks = [len(trainer.chunks(*trainer.prepare(*ds[i]))) for i in range(len(ds))]
+    chunk0 = trainer.chunks(*trainer.prepare(*ds[0]))[0]
+    divisor = float(SG_BS * chunks[0])
+    before = counts()
+    exact = float64_window_grads(trainer, chunk0, divisor)
+    with plain_ops():
+        ref = first_step_grads(trainer, chunk0, divisor)
+    check(counts() == before, "the all-plain training steps launched a kernel")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = first_step_grads(trainer, chunk0, divisor)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Shift-GCN train step, one chunk of {chunk0[0].shape[0]} windows: peak device "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          "Shift-GCN train: non-finite gradients")
+    # a bias added just before a batch norm (the spatial block's, its
+    # down-projection's, the residual conv's) has a zero gradient in exact
+    # arithmetic: held to zero at the model's gradient scale, not its own
+    zero = sorted(k for k in exact if k.endswith(("spatial.bias", "down_bias", "res_bias")))
+    scale = max(g.abs().max().item() for g in exact.values())
+    noise = max((got[k].abs().max().item() / scale, k) for k in zero)
+    print(f"Shift-GCN train: {len(zero)} gradients that are zero in exact arithmetic, "
+          f"largest {noise[0]:.3e} of the model's largest gradient ({noise[1]}, "
+          f"tolerance {TOL_GRAD:g})", flush=True)
+    check(noise[0] <= TOL_GRAD, f"Shift-GCN train: gradient {noise[1]} is {noise[0]:.3e}")
+    got, ref, exact = ({k: v for k, v in d.items() if k not in zero} for d in (got, ref, exact))
+    worst = worst_grad_err(got, exact)
+    plain32 = worst_grad_err(ref, exact)
+    print(f"Shift-GCN train: first-step gradients vs all-plain float64, worst relative "
+          f"error {worst[0]:.3e} ({worst[1]}, tolerance {TOL_GRAD_SG:g}); the fp32 all-plain "
+          f"run's {plain32[0]:.3e} ({plain32[1]}); kernels vs fp32 all-plain "
+          f"{worst_grad_err(got, ref)[0]:.3e}", flush=True)
+    errs = sorted(((grad_err(got[k], exact[k]), grad_err(ref[k], exact[k]), k)
+                   for k in exact), reverse=True)
+    for e_k, e_p, k in errs[:5]:
+        print(f"  {k}: kernels {e_k:.3e}, fp32 all-plain {e_p:.3e} from float64", flush=True)
+    check(worst[0] <= TOL_GRAD_SG,
+          f"Shift-GCN train: gradient {worst[1]} off by {worst[0]:.3e}")
+    for e_k, e_p, k in errs:
+        check(e_k <= GRAD_VS_PLAIN * e_p + TOL_FORMS,
+              f"Shift-GCN train: gradient {k} {e_k:.3e} from float64, the fp32 all-plain "
+              f"run only {e_p:.3e}")
+
+    ce0 = trainer.evaluate(ds)["ce"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ces = [trainer.train_epoch(ds, epoch)["ce"] for epoch in range(SG_EPOCHS)]
+    torch.cuda.synchronize()
+    launched = counts()
+    secs = time.perf_counter() - t0
+    ce1 = trainer.evaluate(ds)["ce"]
+    steps = SG_EPOCHS * sum(chunks)
+    print(f"Shift-GCN train: {SG_EPOCHS} epochs x {SG_TRIALS} trials ({chunks} chunks of "
+          f"{SG_SEGMENT} windows, {steps} chunk steps) in {secs:.2f} s; epoch CE "
+          f"{np.round(ces, 4).tolist()}; eval CE {ce0:.4f} -> {ce1:.4f}; launches "
+          f"{json.dumps(launched)}", flush=True)
+    check(np.isfinite(ces).all() and ce1 < ce0, "Shift-GCN train: CE did not fall")
+    check(launched == {**{k: 0 for k in launched}, "temporal_shift": 20 * steps},
+          f"Shift-GCN train: launches {launched}, want {20 * steps} temporal_shift")
+    return launched
+
+
+def shift_throughput_phase():
+    """train_throughput for Shift-GCN, SG_THROUGHPUT_WINDOWS windows a step,
+    fp32 and bf16."""
+    from stgx_torch.bench import train_throughput
+
+    return [train_throughput.main(["--config", SG_CONFIG, "--trials",
+                                   str(SG_THROUGHPUT_WINDOWS), "--dtype", dtype, "--profile"])
+            for dtype in ("float32", "bfloat16")]
 
 
 # -------------------------------------------------------------- main path
@@ -713,7 +1016,8 @@ def run() -> int:
     phase_done("training path", t_phase)
     for part in trained.values():
         launched = {k: launched[k] + part[k] for k in launched}
-    check(all(v > 0 for v in launched.values()), f"a kernel never launched: {launched}")
+    check(all(v > 0 for k, v in launched.items() if k != "temporal_shift"),
+          f"an RT-ST-GCN kernel never launched: {launched}")
 
     t_phase = time.perf_counter()
     throughput = throughput_phase()
@@ -725,6 +1029,31 @@ def run() -> int:
               f"{rec['frames_per_s']:.0f} frames/s, {rec['model_tflops']:.3f} model "
               f"TFLOP/s ({100 * rec['peak_share']:.2f} % of peak) [{smi_now}]", flush=True)
 
+    # Shift-GCN: its kernel against the plain version, then its serving and
+    # training paths, each with the launch counters at zero
+    sg_cfg = load_config(SG_CONFIG)
+    t_phase = time.perf_counter()
+    recs.update(shift_kernel_phase(shift_shapes(sg_cfg)))
+    phase_done("temporal_shift vs plain", t_phase)
+    t_phase = time.perf_counter()
+    sg_parts = shift_serving_phase(sg_cfg)
+    phase_done("Shift-GCN serving path", t_phase)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data_dir:
+        sg_parts["train"] = shift_training_phase(sg_cfg, data_dir)
+    phase_done("Shift-GCN training path", t_phase)
+    for part in sg_parts.values():
+        launched = {k: launched[k] + part[k] for k in launched}
+    check(all(v > 0 for v in launched.values()), f"a kernel never launched: {launched}")
+    t_phase = time.perf_counter()
+    sg_throughput = shift_throughput_phase()
+    phase_done("Shift-GCN train throughput", t_phase)
+    smi_now = smi_line()
+    for rec in sg_throughput:
+        print(f"Shift-GCN train step {rec['dtype']}, {rec['trials']} windows of "
+              f"{rec['frames']} frames: p50 {rec['step_ms_p50']:.3f} ms, "
+              f"{rec['frames_per_s']:.0f} windows/s [{smi_now}]", flush=True)
+
     # the kernels line
     meta = {
         "gcn_core": ("stgx_torch/csrc/gcn_core.cu", "stgx/ops/pallas_gcn.py:76"),
@@ -732,6 +1061,7 @@ def run() -> int:
         "rt_fused": ("stgx_torch/csrc/rt_fused.cu", "stgx/ops/rt_fused.py:122"),
         "gcn_grads": ("stgx_torch/csrc/gcn_grads.cu", "stgx/ops/pallas_gcn.py:137"),
         "rt_fused_bwd": ("stgx_torch/csrc/rt_fused_bwd.cu", "stgx/ops/rt_fused.py:217"),
+        "temporal_shift": ("stgx_torch/csrc/temporal_shift.cu", "stgx/ops/shift.py:96"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -745,8 +1075,9 @@ def run() -> int:
         })
     print("kernel times are summed over the 9 layers at fp32: the forward kernels at "
           f"one batch forward's shapes (N={N_BATCH}, L={L_BATCH}), the backward ones at "
-          f"one train step's (N={N_TRAIN}, L={L_TRAIN}); launches are those of the "
-          f"serving and training paths", flush=True)
+          f"one train step's (N={N_TRAIN}, L={L_TRAIN}); temporal_shift over the 20 "
+          f"launches of one Shift-GCN forward of {SG_WINDOWS} windows; launches are those "
+          f"of the serving and training paths of both models", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,20 +10,25 @@ Layout:
   stgx_torch.graph     skeleton graph builder (its own copy of stgx.graph)
   stgx_torch.kernels   nvcc build of ``csrc/*.cu`` and the ctypes binding
   stgx_torch.ops       norms, graph conv, window-sum, the fused RT-layer core,
-                       and their gradients (autograd Functions)
-  stgx_torch.models    RT-ST-GCN: batch form and streaming cell
+                       Shift-GCN's temporal and spatial shifts, and their
+                       gradients (autograd Functions)
+  stgx_torch.models    RT-ST-GCN (batch form and streaming cell) and
+                       Shift-GCN (window classifier)
   stgx_torch.weights   JAX parameter tree -> the port's ``state_dict``
   stgx_torch.config    config loading and the model builder
   stgx_torch.utils     loss, top-k statistics, MACs and byte counters
   stgx_torch.data      the directory dataset and the synthetic generator
-  stgx_torch.parallel  length buckets and the one-device Trainer
-  stgx_torch.bench     streaming latency, the B-stream serving cell and
-                       train-step throughput
+  stgx_torch.parallel  length buckets, per-frame windows and the one-device
+                       Trainer (frame and window kinds)
+  stgx_torch.bench     streaming latency (RT FIFO cell and window cell), the
+                       B-stream serving cell and train-step throughput
 
 Every op that has a hand-written kernel launches it for a CUDA tensor and
 uses its plain PyTorch version only for a CPU tensor; its backward does the
-same with the backward kernels. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+same with the backward kernels where the JAX package had one (the temporal
+shift's backward is PyTorch ops on either device, as the JAX package's is
+XLA code). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 The config schema is the JAX package's (groups ``processor``, ``arch``,
 ``optimizer``, ``job``), JSON file ⊕ dotted ``group.key=value`` overrides,
-overrides winning. :func:`build_model` builds ``rt-st-gcn`` only; the other
-families raise ``NotImplementedError`` (see ``ROADMAP.md``).
+overrides winning. :func:`build_model` builds ``rt-st-gcn`` and
+``shift-gcn``; the other families raise ``NotImplementedError`` (see
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -105,10 +106,16 @@ def build_model(cfg: dict, num_classes: int, device=None,
         graph=load_skeleton(cfg["processor"]["graph"]),
         strategy=arch.get("strategy", "spatial"),
         normalization=arch.get("normalization", "BatchNorm"),
-        kernel=sub.get("kernel", arch.get("kernel", 9)),
-        importance=bool(sub.get("importance", True)),
     )
-    for key in ("in_ch", "out_ch", "stride", "residual", "dropout"):
+    # each family's own keywords, as stgx/config.py passes them
+    if name == "shift-gcn":
+        kw["remat"] = bool(arch.get("remat", False))
+        layer_keys = ("in_ch", "out_ch", "stride", "residual")
+    else:
+        kw["kernel"] = sub.get("kernel", arch.get("kernel", 9))
+        kw["importance"] = bool(sub.get("importance", True))
+        layer_keys = ("in_ch", "out_ch", "stride", "residual", "dropout")
+    for key in layer_keys:
         if key in sub:
             kw[key] = tuple(sub[key])
     if "rt_fused" in arch:

@@ -125,6 +125,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stgx_rt_fused_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused_bwd.restype = i
+    lib.stgx_temporal_shift.argtypes = [p, p, p, ll, i, i, i, i, i, i, p]
+    lib.stgx_temporal_shift.restype = i
     lib.stgx_error_string.argtypes = [i]
     lib.stgx_error_string.restype = ctypes.c_char_p
     return lib

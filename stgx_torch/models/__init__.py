@@ -1,12 +1,13 @@
-"""Model registry of the port. Only RT-ST-GCN is ported so far; asking for
+"""Model registry of the port: RT-ST-GCN and Shift-GCN so far; asking for
 any other family of the JAX package raises ``NotImplementedError``."""
 
 from stgx_torch.models.rtstgcn import RtStgcn
+from stgx_torch.models.shiftgcn import ShiftGcn
 
 # families of stgx.models that later slices port, in ROADMAP.md's order
 _NOT_PORTED = (
-    "co-st-gcn", "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn",
-    "shift-gcn++", "shift-gcn++-teacher",
+    "co-st-gcn", "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn++",
+    "shift-gcn++-teacher",
 )
 
 
@@ -20,6 +21,6 @@ class _Registry(dict):
         raise KeyError(f"unknown model: {name!r} (have {sorted(self)})")
 
 
-MODELS = _Registry({"rt-st-gcn": RtStgcn})
+MODELS = _Registry({"rt-st-gcn": RtStgcn, "shift-gcn": ShiftGcn})
 
-__all__ = ["MODELS", "RtStgcn"]
+__all__ = ["MODELS", "RtStgcn", "ShiftGcn"]

@@ -49,15 +49,24 @@ def make_norm(kind: str, features: int, num_joints: int, per_joint: bool = False
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with a flax-layout ``(in, out)`` kernel."""
+    """``y = x @ kernel + bias`` with a flax-layout ``(in, out)`` kernel.
+
+    The kernel and bias take torch's conv init, or with ``kernel_std`` the
+    init of a flax ``nn.Dense`` given a normal kernel init: N(0, std²) and
+    a zero bias."""
 
     def __init__(self, features_in: int, features_out: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, kernel_std: float | None = None):
         super().__init__()
-        init = torch_conv_init(features_in)
-        self.kernel = nn.Parameter(init((features_in, features_out), generator))
-        self.bias = nn.Parameter(
-            torch_bias_init(features_in)((features_out,), generator))
+        shape = (features_in, features_out)
+        if kernel_std is None:
+            kernel = torch_conv_init(features_in)(shape, generator)
+            bias = torch_bias_init(features_in)((features_out,), generator)
+        else:
+            kernel = torch.empty(shape).normal_(0.0, kernel_std, generator=generator)
+            bias = torch.zeros(features_out)
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(bias)
 
     def forward(self, x):
         return x @ self.kernel + self.bias

@@ -1,17 +1,26 @@
 """Training and evaluation on one device — the port of
-``stgx/parallel/loop.py`` for the ``frame`` kind (RT-ST-GCN).
+``stgx/parallel/loop.py`` for the ``frame`` kind (RT-ST-GCN) and the
+``window`` kind (Shift-GCN).
 
 * **Unequal-length trials** are padded to static length buckets with frame
   masks (:func:`stgx_torch.parallel.segments.pad_to_bucket`).
+* **Window models** see a trial as its per-frame receptive-field windows
+  (:func:`stgx_torch.parallel.segments.sliding_windows`, ``W =
+  receptive_field``), one window per frame, processed in ``segment``-sized
+  chunks (the reference's memory knob). A chunk's window logits ``(B,
+  classes)`` form the per-frame series ``(1, B, classes)`` the loss sees; a
+  window is masked as a whole (its frame mask broadcast over W), never
+  frame by frame. A chunk's loss is divided by ``divisor · len(chunks)``,
+  and a trial's reported CE and MSE are the mean over its chunks.
 * **Gradient accumulation** keeps the JAX ``Trainer``'s exact divisors:
   every trial's loss is divided by ``batch_size``, except the ragged final
   group's, divided by ``len(dataset) % batch_size``; gradients add up in
   the parameters' ``.grad`` and Adam steps every ``batch_size`` trials and
   after the last one.
-* **trial_batch** stacks up to that many consecutive same-bucket trials into
-  one forward, each with its own loss normalisation and divisor, never
-  across an optimizer step or the ragged boundary. BatchNorm statistics
-  then span the stack, as in the JAX package.
+* **trial_batch** (frame kind) stacks up to that many consecutive
+  same-bucket trials into one forward, each with its own loss normalisation
+  and divisor, never across an optimizer step or the ragged boundary.
+  BatchNorm statistics then span the stack, as in the JAX package.
 * **Learning rate** decays as ``lr · decay^epoch`` (:meth:`Trainer.set_lr`).
 * **Adam** is ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8, the
   same update as optax's ``adam``.
@@ -22,8 +31,9 @@
 * **Dropout** draws its masks from a ``torch.Generator`` on the model's
   device, seeded ``opt.seed + 1000 + epoch`` unless the caller passes one.
 
-Not ported yet: meshes and their parallel modes, the MS-TCN pipeline, the
-window kinds and their chunks, loading Adam moments from a checkpoint, and
+Not ported yet: the ``_ms`` kinds (MS-TCN, MS-GCN), meshes and their
+parallel modes, the MS-TCN pipeline, ``pass_epoch`` and auxiliary losses
+(Shift-GCN++), loading Adam moments from a checkpoint, and
 rematerialisation (see ROADMAP.md).
 """
 
@@ -37,7 +47,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from stgx_torch.parallel.segments import pad_to_bucket
+from stgx_torch.parallel.segments import pad_to_bucket, sliding_windows
 from stgx_torch.utils.statistics import Statistics
 
 __all__ = ["Trainer", "OptimizerConfig", "MODEL_KIND"]
@@ -77,16 +87,18 @@ class Trainer:
     """
 
     model: Any
-    kind: str  # only 'frame' is ported
+    kind: str  # 'frame' or 'window' (the '_ms' kinds are not ported)
     loss: Any
     opt: OptimizerConfig
+    receptive_field: int = 50  # window size W of the window kind
+    segment: int | None = None  # windows per chunk of the window kind
     bucket: int = 128  # length-bucket granularity
-    trial_batch: int = 1  # trials stacked into one forward
+    trial_batch: int = 1  # trials stacked into one forward (frame kind)
     compute_dtype: str | None = None  # None / 'float32' or 'bfloat16'
     statistics: Any = None  # top-1/top-5 strategy; Statistics() if unset
 
     def __post_init__(self):
-        if self.kind != "frame":
+        if self.kind not in ("frame", "window"):
             raise NotImplementedError(
                 f"Trainer kind {self.kind!r} is not ported to stgx_torch yet; "
                 "see ROADMAP.md"
@@ -116,26 +128,41 @@ class Trainer:
     # -- steps -----------------------------------------------------------------
 
     def _outputs(self, x, mask, train: bool, generator=None):
-        """Per-frame outputs ``(N, L, C)`` in fp32."""
+        """Per-frame outputs in fp32: ``(N, L, C)`` of N stacked trials, or
+        ``(1, B, C)`` of a chunk of B windows ``(B, W, V, C)`` with the
+        ``(B,)`` mask, each window masked as a whole."""
         dt = COMPUTE_DTYPES[self.compute_dtype]
+        if self.kind == "window" and mask is not None:
+            mask = mask[:, None].expand(x.shape[0], x.shape[1])
         kwargs = {"mask": mask, "train": train, "generator": generator}
         if dt is None:
             out = self.model(x, **kwargs)
         else:
             params = {k: p.to(dt) for k, p in self.model.named_parameters()}
             out = functional_call(self.model, params, (x.to(dt),), kwargs)
+        if self.kind == "window":
+            out = out[None]
         return out.float()
 
-    def grad_step(self, x, y, mask, divisors, generator=None):
-        """Forward, loss and backward of ``N`` stacked trials, adding each
-        trial's ``(ce + mse) / divisor`` gradient into ``.grad``.
+    def _series(self, y, mask):
+        """Labels and mask as the loss sees them: a window chunk's ``(B,)``
+        become the ``(1, B)`` series of its outputs."""
+        if self.kind == "window":
+            return y[None], None if mask is None else mask[None]
+        return y, mask
 
-        ``divisors`` is one float for a single trial (the loss over its
-        frames) or one per stacked trial (per-trial losses). Returns
+    def grad_step(self, x, y, mask, divisors, generator=None):
+        """Forward, loss and backward of ``N`` stacked trials (or one chunk
+        of windows), adding each trial's ``(ce + mse) / divisor`` gradient
+        into ``.grad``.
+
+        ``divisors`` is one float for a single trial or chunk (the loss over
+        its frames) or one per stacked trial (per-trial losses). Returns
         ``(ce, mse, top1_correct, top5_correct, total)``, ce and mse summed
         over the stack, as tensors.
         """
         out = self._outputs(x, mask, True, generator)
+        y, mask = self._series(y, mask)
         if isinstance(divisors, (int, float)):
             ce, mse = self.loss(out, y, mask)
             scaled = (ce + mse) / divisors
@@ -159,6 +186,34 @@ class Trainer:
                 torch.as_tensor(np.stack(ys), dtype=torch.int64).to(self.device),
                 torch.as_tensor(np.stack(masks)).to(self.device))
 
+    # -- trial preparation -----------------------------------------------------
+
+    def prepare(self, x, y):
+        """One trial bucket-padded and laid out for the model kind, on the
+        device: ``(1, L, V, C)``, ``(1, L)``, ``(1, L)`` for the frame kind;
+        its windows ``(L, W, V, C)``, labels ``(L,)`` and mask ``(L,)`` for
+        the window kind."""
+        xb, yb, mb = self.stack_trials(*([a] for a in pad_to_bucket(x, y, self.bucket)))
+        if self.kind == "frame":
+            return xb, yb, mb
+        return sliding_windows(xb, self.receptive_field)[0], yb[0], mb[0]
+
+    def chunks(self, x, y, mask):
+        """A prepared trial split into ``segment``-sized chunks of windows
+        (window kind with ``segment`` set), else the trial whole.
+
+        A chunk that holds no frame of the trial, only bucket padding, is
+        left out. The JAX ``Trainer`` keeps it, and its masked loss is then
+        0/0: the whole epoch turns NaN (ROADMAP.md §3). Where no chunk is
+        all padding (``segment`` divides ``bucket``, and the bucket ends
+        less than a segment past the trial), the two agree exactly."""
+        seg = self.segment
+        if seg is None or self.kind != "window" or x.shape[0] <= seg:
+            return [(x, y, mask)]
+        frames = max(1, int(mask.sum().item()))  # padding only follows them
+        return [(x[i: i + seg], y[i: i + seg], mask[i: i + seg])
+                for i in range(0, frames, seg)]
+
     # -- epochs ----------------------------------------------------------------
 
     def train_epoch(self, dataset, epoch: int, generator=None,
@@ -169,7 +224,7 @@ class Trainer:
         if generator is None:
             generator = self.epoch_generator(epoch)
         self.optimizer.zero_grad(set_to_none=True)
-        if self.trial_batch > 1:
+        if self.trial_batch > 1 and self.kind == "frame":
             return self._batched_epoch(dataset, generator, log)
         n = len(dataset)
         bs = self.opt.batch_size
@@ -179,14 +234,20 @@ class Trainer:
         t0 = time.time()
         for i in range(n):
             x, y = dataset[i]
-            xb, yb, mb = self.stack_trials(*([a] for a in pad_to_bucket(x, y, self.bucket)))
             divisor = float(bs if (ragged == 0 or i < n - ragged) else ragged)
-            ce, mse, ic1, ic5, itot = self.grad_step(xb, yb, mb, divisor, generator)
-            ce_sum += float(ce)
-            mse_sum += float(mse)
-            c1, c5, tot = c1 + int(ic1), c5 + int(ic5), tot + int(itot)
+            chunks = self.chunks(*self.prepare(x, y))
+            trial_ce = trial_mse = 0.0
+            for cx, cy, cm in chunks:
+                # the reference's ce / num_subsegments (processor.py:392,532-543)
+                ce, mse, ic1, ic5, itot = self.grad_step(
+                    cx, cy, cm, divisor * len(chunks), generator)
+                trial_ce += float(ce) / len(chunks)
+                trial_mse += float(mse) / len(chunks)
+                c1, c5, tot = c1 + int(ic1), c5 + int(ic5), tot + int(itot)
+            ce_sum += trial_ce
+            mse_sum += trial_mse
             if log:
-                log(f"[trial {i}]: loss = {float(ce) + float(mse):.4f}")
+                log(f"[trial {i}]: loss = {trial_ce + trial_mse:.4f}")
             if (i + 1) % bs == 0 or (i + 1) == n:
                 self._step()
         return {"ce": ce_sum, "mse": mse_sum, "top1": c1 / max(tot, 1),
@@ -236,18 +297,51 @@ class Trainer:
                  log: Callable[[str], None] | None = None) -> dict:
         """Whole-dataset eval: losses, top-1/top-5 and the duck-typed
         segmental ``metrics`` (``init_metric(n)``, ``m(labels, pred)``,
-        ``reduce()``) per trial."""
+        ``reduce()``) per trial. A window-kind trial's per-frame top-1 is
+        its chunks' joined and cut to the trial's length."""
         n_visit = len(dataset) if num_samples is None else min(len(dataset), num_samples)
         for m in metrics:
             m.init_metric(n_visit)
+        if self.trial_batch > 1 and self.kind == "frame":
+            return self._evaluate_batched(dataset, metrics, n_visit, log)
         c1 = c5 = tot = 0
         ce_sum = mse_sum = 0.0
         t0 = time.time()
-        step = max(1, self.trial_batch)
+        for i in range(n_visit):
+            x, y = dataset[i]
+            chunks = self.chunks(*self.prepare(x, y))
+            top1_parts = []
+            trial_ce = trial_mse = 0.0
+            for cx, cy, cm in chunks:
+                out = self._outputs(cx, cm, False)
+                ly, lm = self._series(cy, cm)
+                ce, mse = self.loss(out, ly, lm)
+                top1, _, ic1, ic5, itot = self.statistics(out, ly, lm)
+                trial_ce += float(ce) / len(chunks)
+                trial_mse += float(mse) / len(chunks)
+                c1, c5, tot = c1 + int(ic1), c5 + int(ic5), tot + int(itot)
+                top1_parts.append(top1.reshape(-1))
+            ce_sum += trial_ce
+            mse_sum += trial_mse
+            valid = torch.cat(top1_parts)[: len(y)].cpu().numpy()
+            for m in metrics:
+                m(np.asarray(y), valid)
+            if log:
+                log(f"[trial {i}]: loss = {trial_ce + trial_mse:.4f}")
+        for m in metrics:
+            m.reduce()
+        return {"top1": c1 / max(tot, 1), "top5": c5 / max(tot, 1),
+                "ce": ce_sum, "mse": mse_sum, "duration": time.time() - t0}
+
+    def _evaluate_batched(self, dataset, metrics, n_visit, log):
+        """Frame-kind eval with same-bucket trials stacked per forward."""
+        c1 = c5 = tot = 0
+        ce_sum = mse_sum = 0.0
+        t0 = time.time()
         i = 0
         while i < n_visit:
             group, labels = [], []
-            while i < n_visit and len(group) < step:
+            while i < n_visit and len(group) < self.trial_batch:
                 x, y = dataset[i]
                 xp, yp, mask = pad_to_bucket(x, y, self.bucket)
                 if group and xp.shape[0] != group[0][0].shape[0]:
@@ -257,10 +351,7 @@ class Trainer:
                 i += 1
             xb, yb, mb = self.stack_trials(*zip(*group))
             out = self._outputs(xb, mb, False)
-            if self.trial_batch > 1:
-                ce_v, mse_v = self.loss(out, yb, mb, per_sample=True)
-            else:
-                ce_v, mse_v = (t[None] for t in self.loss(out, yb, mb))
+            ce_v, mse_v = self.loss(out, yb, mb, per_sample=True)
             top1, _, ic1, ic5, itot = self.statistics(out, yb, mb)
             ce_v, mse_v, top1 = ce_v.cpu().numpy(), mse_v.cpu().numpy(), top1.cpu().numpy()
             c1, c5, tot = c1 + int(ic1), c5 + int(ic5), tot + int(itot)

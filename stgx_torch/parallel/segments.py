@@ -1,15 +1,17 @@
-"""Length bucketing with a frame mask — the port of
-``stgx/parallel/segments.py::pad_to_bucket``. The window helpers
-(``sliding_windows``, ``segment_overlapping``, ``fold_segments``) come with
-the window models."""
+"""Length bucketing with a frame mask and per-frame windows — the port of
+``stgx/parallel/segments.py::pad_to_bucket`` and ``sliding_windows``. The
+overlapped-segment helpers (``segment_overlapping``, ``fold_segments``)
+come with the models that use them."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
-__all__ = ["pad_to_bucket"]
+__all__ = ["pad_to_bucket", "sliding_windows"]
 
 
 def pad_to_bucket(x: np.ndarray, labels: np.ndarray, bucket: int):
@@ -27,3 +29,11 @@ def pad_to_bucket(x: np.ndarray, labels: np.ndarray, bucket: int):
     mask = np.zeros(target, dtype=np.float32)
     mask[:l] = 1.0
     return xp, yp, mask
+
+
+def sliding_windows(x: torch.Tensor, window: int) -> torch.Tensor:
+    """``(N, L, V, C)`` → ``(N, L, W, V, C)``: frame t's window covers input
+    frames ``[t − W + 1, t]``, with zeros before the start (the empty
+    buffer). On x's device; the result is contiguous."""
+    xp = F.pad(x, (0, 0, 0, 0, window - 1, 0))
+    return xp.unfold(1, window, 1).permute(0, 1, 4, 2, 3).contiguous()

@@ -100,7 +100,7 @@ def test_build_compiles_each_source_for_sm90a_and_links_one_library(fake_nvcc):
     calls = fake_nvcc.read_text().splitlines()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
     assert sources == ["gcn_core.cu", "gcn_grads.cu", "rt_fused.cu",
-                       "rt_fused_bwd.cu", "window_sum.cu"]
+                       "rt_fused_bwd.cu", "temporal_shift.cu", "window_sum.cu"]
     compiles = [c for c in calls if " -c " in c]
     assert sorted(Path(c.split(" -c ")[1].split()[0]).name for c in compiles) == sources
     assert all("arch=compute_90a,code=sm_90a" in c and "-fPIC" in c for c in compiles)

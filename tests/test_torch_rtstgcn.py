@@ -184,7 +184,7 @@ def test_config_rt_fused_key(monkeypatch):
     assert rt_fused.rt_fused_enabled()
 
 
-@pytest.mark.parametrize("name", ["st-gcn", "co-st-gcn", "shift-gcn"])
+@pytest.mark.parametrize("name", ["st-gcn", "co-st-gcn", "shift-gcn++"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(load_config(CONFIG, [f"processor.model={name}"]), 52, device="cpu")

@@ -382,6 +382,6 @@ def test_set_lr_decays_per_epoch(synth):
 def test_unported_kinds_and_cpu_measurement_refuse(synth):
     _, _, _, tt = _pair(synth, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(model=tt.model, kind="window", loss=tt.loss, opt=tt.opt)
+        Trainer(model=tt.model, kind="window_ms", loss=tt.loss, opt=tt.opt)
     with pytest.raises(RuntimeError, match="device measurement"):
         measure_train_throughput(tt, trials=1, frames=8)
