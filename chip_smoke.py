@@ -73,9 +73,14 @@ SG_LN_FRAMES = 96  # LayerNorm streamed == offline: frames
 SG_TRIALS, SG_LEN, SG_BS, SG_EPOCHS, SG_SEGMENT = 4, (300, 700), 2, 3, 256
 SG_THROUGHPUT_WINDOWS = 256  # train_throughput: windows a step
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on the
+# CUDA cores, TF32 and bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+# Shapes off the main path for the graph-conv kernels, (R, V, P, C_in, C_out):
+# C_in not a multiple of the copy width (3), C_out not one in bf16 (52, 300),
+# C_out past one 256-wide tile, P = 4 (two partition groups), V = 7
+RAGGED_GCN = [(1000, 25, 3, 3, 52), (1000, 25, 3, 200, 300), (37, 7, 4, 40, 24)]
 
 # Tolerances, relative to max(1, max|plain|):
 # kernel vs plain, an fp32 output: the same fp32 products summed in another
@@ -208,6 +213,28 @@ def bound(nbytes, flops, dtype="float32"):
     return max(t_b, t_o), t_b, t_o
 
 
+# the fp32 route of each tensor-core kernel: gcn_core's runs on the CUDA
+# cores, gcn_grads' as three TF32 passes on the tensor cores
+FP32_ROUTE = {"gcn_core": "FMA", "gcn_grads": "3 x TF32"}
+
+
+def add_tensor_core_record(recs, name, shape, flops, b32, b16, ms16, lib16):
+    """Print and add the tensor-core figures of gcn_core or gcn_grads: the
+    bound of the kernel's fp32 route (the fp32 FMA bound ``b32``, or for
+    three TF32 passes 3 x flops at the TF32 peak over the same bytes) and
+    the bf16 kernel and einsum times beside the bf16 bound (``b16``: flops
+    at the bf16 peak, the bf16 bytes)."""
+    route = (b32[0] if FP32_ROUTE[name] == "FMA"
+             else max(b32[1], 3 * flops / PEAK_FLOPS["tf32"] * 1e3))
+    print(f"  {name} {shape}: bounds fp32 FMA {b32[0]:.4f} ms, fp32 route "
+          f"({FP32_ROUTE[name]}) {route:.4f} ms; bfloat16: kernel {ms16:.4f} ms, "
+          f"library {lib16:.4f} ms, bound {b16[0]:.4f} ms", flush=True)
+    r = recs[name]
+    for key, val in (("route_bound_ms", route), ("bf16_ms", ms16),
+                     ("bf16_library_ms", lib16), ("bf16_bound_ms", b16[0])):
+        r[key] = r.get(key, 0.0) + val
+
+
 def add_record(recs, name, shape, err, ms, plain_ms, lib_ms, b):
     """Print one kernel timing and add it into ``recs[name]`` (the kernels
     line sums a kernel's records over the layers)."""
@@ -295,9 +322,15 @@ def kernel_phase(model, layers):
                 plain_ms = time_ms(lambda: gcn_core_plain(x32, A, W))
                 lib_ms = time_ms(lambda: torch.einsum("rvc,pvw,pcd->rwd", x32, A, W))
                 flops = 2 * rows * v * p * cin * (v + cout)
-                nbytes = 4 * (rows * v * (cin + cout) + p * v * v + p * cin * cout)
+                values = rows * v * (cin + cout) + p * v * v + p * cin * cout
+                b32 = bound(4 * values, flops)
                 add("gcn_core", (rows, v, cin, cout), errs[torch.float32], ms,
-                    plain_ms, lib_ms, bound(nbytes, flops))
+                    plain_ms, lib_ms, b32)
+                xb, Ab, Wb = x32.bfloat16(), A.bfloat16(), W.bfloat16()
+                add_tensor_core_record(
+                    recs, "gcn_core", (rows, v, cin, cout), flops, b32,
+                    bound(2 * values, flops, "bfloat16"), time_ms(lambda: gcn_core(xb, Ab, Wb)),
+                    time_ms(lambda: torch.einsum("rvc,pvw,pcd->rwd", xb, Ab, Wb)))
             else:
                 print(f"  gcn_core {(rows, v, cin, cout)} float32: kernel {ms:.4f} ms",
                       flush=True)
@@ -305,6 +338,14 @@ def kernel_phase(model, layers):
     for rows, ms in step_ms.items():
         print(f"  gcn_core at R={rows}: {ms:.4f} ms per streaming step (9 launches)",
               flush=True)
+    for rows, vr, pr, cin, cout in RAGGED_GCN:
+        A = torch.rand(pr, vr, vr, generator=gen, device="cuda")
+        W = rnd(pr, cin, cout, scale=cin**-0.5)
+        x32 = rnd(rows, vr, cin)
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x = x32.to(dt)
+            compare("gcn_core", (rows, vr, pr, cin, cout), lambda: gcn_core(x, A, W),
+                    lambda: gcn_core_plain(x, A, W), str(dt)[6:], tol)
 
     print("window_sum vs plain (csrc/window_sum.cu)", flush=True)
     for _, cout, s in layers:
@@ -369,6 +410,7 @@ def backward_kernel_phase(model, layers):
     bf16. Returns their records of the ``kernels`` line."""
     import torch
 
+    from stgx_torch.bench.train_throughput import profile_steps
     from stgx_torch.ops.gcn_grads import gcn_grads, gcn_grads_plain
     from stgx_torch.ops.rt_fused import rt_fused_bwd, rt_fused_bwd_plain
 
@@ -382,6 +424,7 @@ def backward_kernel_phase(model, layers):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
     print("gcn_grads vs plain (csrc/gcn_grads.cu)", flush=True)
+    split_inputs = []
     for cin, cout, _ in layers:
         A = (model.A * (1.0 + 0.1 * rnd(p, v, v))).contiguous()
         W = rnd(p, cin, cout, scale=cin**-0.5)
@@ -398,9 +441,35 @@ def backward_kernel_phase(model, layers):
         lib_ms = time_ms(lambda: (torch.einsum("rvc,pvw,rwd->pcd", x32, A, g32),
                                   torch.einsum("rvc,rwd,pcd->pvw", x32, g32, W)))
         flops = 4 * rows * p * v * cin * (v + cout)
-        nbytes = 4 * (rows * v * (cin + cout) + 2 * (p * v * v + p * cin * cout))
+        ins, outs = rows * v * (cin + cout) + p * v * v + p * cin * cout, p * v * v + p * cin * cout
+        b32 = bound(4 * (ins + outs), flops)
         add_record(recs, "gcn_grads", (rows, v, cin, cout), errs[torch.float32], ms,
-                   plain_ms, lib_ms, bound(nbytes, flops))
+                   plain_ms, lib_ms, b32)
+        xb, gb, Ab, Wb = x32.bfloat16(), g32.bfloat16(), A.bfloat16(), W.bfloat16()
+        split_inputs.append(((x32, g32, A, W), (xb, gb, Ab, Wb)))
+        add_tensor_core_record(
+            recs, "gcn_grads", (rows, v, cin, cout), flops, b32,
+            bound(2 * ins + 4 * outs, flops, "bfloat16"),
+            time_ms(lambda: gcn_grads(xb, gb, Ab, Wb)),
+            time_ms(lambda: (torch.einsum("rvc,pvw,rwd->pcd", xb, Ab, gb),
+                             torch.einsum("rvc,rwd,pcd->pvw", xb, gb, Wb))))
+    # the device time of gcn_grads' own kernels, summed over the 9 layers
+    for k, dt in enumerate(("float32", "bfloat16")):
+        prof = profile_steps(lambda: [gcn_grads(*inputs[k]) for inputs in split_inputs])
+        split = {part: sum(t["ms"] for t in prof["top_kernels"] if f"(anonymous namespace)::{part}" in t["name"])
+                 for part in ("gw_kernel", "ga_kernel", "reduce_kernel")}
+        print(f"  gcn_grads split over the 9 layers, {dt}: "
+              + ", ".join(f"{part} {ms:.4f} ms" for part, ms in split.items()), flush=True)
+    del split_inputs
+    for r_, vr, pr, cin, cout in RAGGED_GCN:
+        A = torch.rand(pr, vr, vr, generator=gen, device="cuda")
+        W = rnd(pr, cin, cout, scale=cin**-0.5)
+        x32, g32 = rnd(r_, vr, cin), rnd(r_, vr, cout)
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x, g = x32.to(dt), g32.to(dt)
+            compare("gcn_grads", (r_, vr, pr, cin, cout), lambda: gcn_grads(x, g, A, W),
+                    lambda: gcn_grads_plain(x, g, A, W), str(dt)[6:], tol)
+            check_repeatable("gcn_grads", lambda: gcn_grads(x, g, A, W))
 
     print("rt_fused_bwd vs plain (csrc/rt_fused_bwd.cu)", flush=True)
     for cin, cout, s in layers:
@@ -1072,12 +1141,16 @@ def run() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["_tb"] >= r["_to"] else "operations",
             "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("route_bound_ms", "bf16_ms", "bf16_library_ms",
+                                 "bf16_bound_ms") if k in r},
         })
     print("kernel times are summed over the 9 layers at fp32: the forward kernels at "
           f"one batch forward's shapes (N={N_BATCH}, L={L_BATCH}), the backward ones at "
           f"one train step's (N={N_TRAIN}, L={L_TRAIN}); temporal_shift over the 20 "
           f"launches of one Shift-GCN forward of {SG_WINDOWS} windows; launches are those "
-          f"of the serving and training paths of both models", flush=True)
+          f"of the serving and training paths of both models; gcn_core and gcn_grads "
+          f"also give their fp32 route's bound and their bf16 times and bound",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

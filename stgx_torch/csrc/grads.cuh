@@ -1,12 +1,12 @@
-// Shared pieces of the two backward kernels, gcn_grads.cu and
-// rt_fused_bwd.cu: the parameter gradients of the graph conv
+// The backward kernels of rt_fused_bwd.cu, which alone uses this header
+// (gcn_grads.cu has tensor-core kernels of its own): the parameter
+// gradients of the graph conv
 //
 //   y[r,w,d] = sum_{p,v,c} x[r,v,c] * A[p,v,w] * W[p,c,d]
 //
-// taken against a row gradient G (R, V, C_out), which is either the upstream
-// gradient g itself (gcn_grads, taps = 1) or its anti-causal window-sum
-// gy[r] = sum_{j<taps} g[r + j*stride] within each sequence of L rows
-// (rt_fused_bwd). G is formed from g as it is staged into shared memory and
+// taken against a row gradient G (R, V, C_out): the anti-causal window-sum
+// gy[r] = sum_{j<taps} g[r + j*stride] within each sequence of L rows of
+// the upstream gradient g (g itself for taps = 1). G is formed from g as it is staged into shared memory and
 // never reaches device memory.
 //
 //   gW[p,c,d] = sum_{r,w} T_p[(r,w),c] * G[(r,w),d],
@@ -405,7 +405,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // The whole backward: the two partial-sum kernels, then the reductions.
 // ws_w holds splits_w * P * Cin * Cout floats, ws_a splits_a * ceil(Cin/64)
 // * P * V * V, ws_be (when gbe is set) splits_w * V * Cout. gx and gbe may
-// be null (gcn_grads).
+// be null.
 template <typename T>
 int grads(const void* x, const void* g, const void* A, const void* W,
           void* gx, float* gA, float* gW, float* gbe, float* ws_w,

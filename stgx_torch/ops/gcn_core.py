@@ -1,19 +1,28 @@
 """Graph-conv core ``y[r,w,d] = Σ_{p,v,c} x[r,v,c]·A[p,v,w]·W[p,c,d]``.
 
 Replaces the TPU kernel ``stgx/ops/pallas_gcn.py:_kernel`` (launched by
-``_core_fwd_impl``) with the hand-written CUDA kernel ``csrc/gcn_core.cu``.
+``_core_fwd_impl``) with the hand-written CUDA kernels of
+``csrc/gcn_core.cu``.
 
 Bound on the H100: operations. A row costs ``2·V·P·C_in·(V + C_out)`` flops
 against ``(C_in + C_out)·V`` values read and written, 65–210 flops a byte
-in fp32 at the main path's widths, above the card's 20 (67 TFLOP/s fp32
-over 3.35 TB/s). The design answer, in the source's note: the aggregate
-``xᵀ·A_p`` is formed in shared memory per channel chunk and multiplied into
-a register tile at once, so device memory sees only x, W and y.
+in fp32 at the main path's widths, above the card's 20 for fp32 FMAs; in
+bf16 near the tensor cores' ~300. The design answer, in the source's note:
+the aggregate ``x·A_p`` first, formed once per block for up to 256 output
+columns in shared memory, then the channel mix into registers; copies are
+asynchronous and double buffered; device memory sees only x, W and y.
 
-Numerics: A and W are taken in x's type, as the TPU kernel took them; the
-aggregate stays fp32 into the channel product and everything sums in fp32;
-y is written in x's type. The conv bias stays outside (see
-:func:`stgx_torch.ops.graph_conv.partitioned_gcn`).
+Routes and numerics: A and W are taken in x's type, as the TPU kernel took
+them. fp32 runs both products on the CUDA cores in fp32 FMAs (8 × 8
+outputs a thread), in the plain tile's order of sums, so it gives the bits
+of the fused core's graph conv; three TF32 passes on the tensor cores were
+measured and left the first-step gradients of RT-ST-GCN too far from
+float64 (``PERF.md``). bf16 runs both products on the tensor cores
+(``mma.sync``) and rounds the aggregate to bf16 before the channel mix, as
+the TPU kernel's second ``dot_general`` did under default precision. Sums
+are fp32; y is written in x's type. The conv bias stays outside (see
+:func:`stgx_torch.ops.graph_conv.partitioned_gcn`). :func:`core_tile`
+picks the kernel's tile on the host.
 
 Gradient: :func:`gcn_core` is a ``torch.autograd.Function``, the port of
 the JAX ``custom_vjp`` (``_core_fwd``/``_core_bwd``). Its backward runs the
@@ -31,7 +40,25 @@ import torch
 from stgx_torch import kernels
 from stgx_torch.ops.gcn_grads import gcn_grads
 
-__all__ = ["gcn_core", "gcn_core_plain"]
+__all__ = ["gcn_core", "gcn_core_plain", "core_tile", "CORE_TILES"]
+
+SMS = 132  # the H100's streaming multiprocessors
+# The tiles of csrc/gcn_core.cu by index: (input rows NR, output columns BN)
+# a block of the bf16 route takes, 32 rows m for each input row (joints
+# padded to 32). The fp32 route's tiles take the same BN and 32·NR rows m,
+# dense (the narrow one 64).
+CORE_TILES = ((2, 256), (4, 128), (4, 64), (1, 64))
+
+
+def core_tile(rows: int, cout: int) -> int:
+    """The tile the kernel takes for ``rows`` input rows and ``cout`` output
+    columns: the wide tile whose BN covers C_out (up to 256), so that one
+    block forms the aggregate once for all its columns; or the narrow one,
+    64 columns wide, where the wide tiles would give the card fewer blocks
+    than it has SMs (the streaming cell, R = B streams)."""
+    wide = 0 if cout > 128 else 1 if cout > 64 else 2
+    nr, bn = CORE_TILES[wide]
+    return wide if -(-rows // nr) * -(-cout // bn) >= SMS else len(CORE_TILES) - 1
 
 
 def gcn_core_plain(x, A, W):
@@ -58,9 +85,10 @@ def _core(x, A, W):
     y = torch.empty((r, v, cout), dtype=x.dtype, device=x.device)
     if r == 0:
         return y
+    mode = code | core_tile(r, cout) << 8  # the C entry point's type and tile
     rc = kernels.load().stgx_gcn_core(
         x.data_ptr(), A.data_ptr(), W.data_ptr(), y.data_ptr(),
-        r, v, p, x.shape[2], cout, code, kernels.stream_handle(),
+        r, v, p, x.shape[2], cout, mode, kernels.stream_handle(),
     )
     kernels.check(rc, "gcn_core")
     gcn_core.launches += 1

@@ -4,18 +4,32 @@
     gW[p,c,d] = Σ_{r,v,w} x[r,v,c]·A[p,v,w]·g[r,w,d]      (P, C_in, C_out)
 
 Replaces the TPU kernel ``stgx/ops/pallas_gcn.py:_grads_kernel`` (launched
-by ``_grads_impl``) with the hand-written CUDA kernel ``csrc/gcn_grads.cu``.
+by ``_grads_impl``) with the hand-written CUDA kernels of
+``csrc/gcn_grads.cu``.
 
 Bound on the H100: operations. A row costs ``4·P·V·C_in·(V + C_out)``
 flops, twice the forward's, against ``(C_in + C_out)·V`` values read; the
-outputs are small. The design answer, in the source's note: the TPU kernel
-carried both sums in VMEM across a sequential row grid; here each block
-sums one split of the rows into an fp32 partial in a workspace this wrapper
-allocates, and a last pass adds the partials in split order, so the result
-is the same from run to run (no atomics).
+outputs are small. Almost all of it is two products of size R·V × C_in ×
+C_out a partition, ``gW_p = T_pᵀ·g`` (T_p the aggregate ``x·A_p``) and
+``gA_p = Σ x·U_p`` with ``U_p = g·W_pᵀ``. The design answer, in the
+source's note: every product on the tensor cores; the gW kernel forms T_p
+once a step for all its partitions and a 64- or 128-wide C_out tile; the gA
+kernel keeps its W_p columns in shared memory while it walks its rows. The
+TPU kernel carried both sums in VMEM across a sequential row grid; here
+each block sums one split of the rows into an fp32 partial in a workspace
+this wrapper allocates (:func:`gcn_grads_splits` sizes them), and a last
+pass adds the partials in split order, so the result is the same from run
+to run (no atomics).
 
-Numerics: A and W are taken in x's type, as the TPU kernel took them; every
-product sums in fp32 and both gradients come back in fp32.
+Routes and numerics: A and W are taken in x's type, as the TPU kernel took
+them; every sum is fp32 and both gradients come back in fp32. fp32 runs the
+three-pass TF32 split on every product; bf16 runs one pass on the products
+of the inputs and splits the fp32 intermediates T_p and U_p into bf16
+``hi + lo`` for the second products, so neither route rounds an
+intermediate to 16 bits.
+
+``grads_splits`` and ``grads_workspaces`` size the partial sums of the
+other backward kernel, ``rt_fused_bwd`` (``csrc/grads.cuh``).
 """
 
 from __future__ import annotations
@@ -24,17 +38,36 @@ import torch
 
 from stgx_torch import kernels
 
-__all__ = ["gcn_grads", "gcn_grads_plain", "grads_splits", "grads_workspaces"]
+__all__ = ["gcn_grads", "gcn_grads_plain", "gcn_grads_splits", "grads_splits",
+           "grads_workspaces"]
 
-TILE = 64  # output tile edge of the grads kernels (csrc/grads.cuh: kGT)
-_BLOCKS = 2 * 132  # two resident blocks on each of the H100's 132 SMs
+SMS = 132  # the H100's streaming multiprocessors
+TILE = 64  # output tile edge of rt_fused_bwd's grads kernels (csrc/grads.cuh: kGT)
+_BLOCKS = 2 * SMS  # those kernels hold two blocks on each SM
+# gcn_grads.cu: the C_in tiles of its gW and gA kernels (kWC, kAC), its
+# gW kernel's C_out tile (64 up to 64 columns, else 128), and the partitions
+# a block takes (kPB)
+GW_TILE_C, GA_TILE_C, PART_GROUP = 64, 32, 3
+
+
+def gcn_grads_splits(rows: int, p: int, cin: int, cout: int):
+    """``(splits_w, splits_a)``: how many row splits the gW and the gA
+    kernels of ``csrc/gcn_grads.cu`` take. Each of them fills most of an
+    SM's shared memory, so one block runs on each SM; each kernel launches
+    at most one block for each of the 132 SMs (one round, every block
+    walking an equal share of the rows), never more splits than rows."""
+    groups = -(-p // PART_GROUP)
+    tile_d = 64 if cout <= 64 else 128
+    tiles_w = groups * -(-cin // GW_TILE_C) * -(-cout // tile_d)
+    tiles_a = groups * -(-cin // GA_TILE_C)
+    return tuple(max(1, min(rows, SMS // tiles, 65535)) for tiles in (tiles_w, tiles_a))
 
 
 def grads_splits(rows: int, cin: int, cout: int):
-    """``(splits_w, splits_a)``: how many row splits the gW and the gA
-    kernels take, so that each launches at most two blocks for each of the
-    132 SMs (both kernels hold two blocks an SM), never a partial second
-    round."""
+    """``(splits_w, splits_a)``: how many row splits rt_fused_bwd's gW and
+    gA kernels (``csrc/grads.cuh``) take, so that each launches at most two
+    blocks for each of the 132 SMs (both kernels hold two blocks an SM),
+    never a partial second round."""
     ct, dt = -(-cin // TILE), -(-cout // TILE)
     splits_w = max(1, min(rows, _BLOCKS // (ct * dt), 65535))
     splits_a = max(1, min(rows, _BLOCKS // ct, 65535))
@@ -42,8 +75,9 @@ def grads_splits(rows: int, cin: int, cout: int):
 
 
 def grads_workspaces(rows, v, p, cin, cout, device, gbe: bool = False):
-    """The fp32 partial-sum workspaces of the grads kernels (sizes as in
-    ``csrc/grads.cuh``) and the split counts they were sized for."""
+    """The fp32 partial-sum workspaces of rt_fused_bwd's grads kernels
+    (sizes as in ``csrc/grads.cuh``) and the split counts they were sized
+    for."""
     splits_w, splits_a = grads_splits(rows, cin, cout)
     ct = -(-cin // TILE)
 
@@ -94,10 +128,13 @@ def gcn_grads(x, g, A, W):
     if r == 0:
         return (torch.zeros((p, v, v), dtype=torch.float32, device=x.device),
                 torch.zeros((p, cin, cout), dtype=torch.float32, device=x.device))
-    gA = torch.empty((p, v, v), dtype=torch.float32, device=x.device)
-    gW = torch.empty((p, cin, cout), dtype=torch.float32, device=x.device)
-    splits_w, splits_a, ws_w, ws_a, _ = grads_workspaces(r, v, p, cin, cout,
-                                                         x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gA = torch.empty((p, v, v), **f32)
+    gW = torch.empty((p, cin, cout), **f32)
+    # fp32 partials, as csrc/gcn_grads.cu lays them out
+    splits_w, splits_a = gcn_grads_splits(r, p, cin, cout)
+    ws_w = torch.empty(splits_w * p * cin * cout, **f32)
+    ws_a = torch.empty(splits_a * -(-cin // GA_TILE_C) * p * v * v, **f32)
     rc = kernels.load().stgx_gcn_grads(
         x.data_ptr(), g.data_ptr(), A.data_ptr(), W.data_ptr(), gA.data_ptr(),
         gW.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(), r, v, p, cin, cout,
