@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``stgx_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes (fp32
 and bf16) and times kernel, plain version and the one-call PyTorch
-yardstick where there is one. It then drives the main path: RT-ST-GCN₉ at
+yardstick where there is one; for the fused layer kernels, which no one
+PyTorch call computes, the yardstick is the port's unfused kernels for the
+same function at the same shapes. It then drives the main path: RT-ST-GCN₉ at
 its PKU-MMD width (``configs/pku-mmd/as_is/rtstgcn.json``, random weights
 from the config's seed) in its batch form, unfused and fused, and its
 streaming cell through ``stgx_torch.bench.serving``; it checks from the
@@ -81,6 +83,13 @@ PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 # C_in not a multiple of the copy width (3), C_out not one in bf16 (52, 300),
 # C_out past one 256-wide tile, P = 4 (two partition groups), V = 7
 RAGGED_GCN = [(1000, 25, 3, 3, 52), (1000, 25, 3, 200, 300), (37, 7, 4, 40, 24)]
+# Shapes off the main path for the fused layer kernels, (N, L, V, P, C_in,
+# C_out, Gamma, s): V = 7, P = 4, C_in = 3 with C_out = 52 and 300 (L = 45,
+# not a multiple of any tile; stride 2); a sequence shorter than its halo
+# (L = 5 < H = 8); the longest halos the dispatch rule admits (H = 64 at
+# C = 64, H = 32 at C = 256)
+RAGGED_RT = [(2, 45, 7, 4, 3, 52, 9, 1), (2, 45, 7, 4, 3, 300, 9, 2), (3, 5, 25, 3, 64, 64, 9, 1),
+             (2, 200, 25, 3, 64, 64, 65, 1), (1, 100, 25, 3, 256, 256, 33, 1)]
 
 # Tolerances, relative to max(1, max|plain|):
 # kernel vs plain, an fp32 output: the same fp32 products summed in another
@@ -235,6 +244,20 @@ def add_tensor_core_record(recs, name, shape, flops, b32, b16, ms16, lib16):
         r[key] = r.get(key, 0.0) + val
 
 
+def add_fused_record(recs, name, shape, unfused_ms, ms16, unfused16, b16):
+    """Print and add the yardstick of a fused kernel: the port's unfused
+    kernels for the same function at the same shapes, in fp32 and bf16, and
+    the bf16 kernel beside its bound (``b16``: flops at the bf16 peak, the
+    bf16 bytes)."""
+    print(f"  {name} {shape}: unfused kernels fp32 {unfused_ms:.4f} ms; bfloat16: kernel "
+          f"{ms16:.4f} ms, unfused kernels {unfused16:.4f} ms, bound {b16[0]:.4f} ms",
+          flush=True)
+    r = recs[name]
+    for key, val in (("unfused_ms", unfused_ms), ("bf16_ms", ms16),
+                     ("bf16_unfused_ms", unfused16), ("bf16_bound_ms", b16[0])):
+        r[key] = r.get(key, 0.0) + val
+
+
 def add_record(recs, name, shape, err, ms, plain_ms, lib_ms, b):
     """Print one kernel timing and add it into ``recs[name]`` (the kernels
     line sums a kernel's records over the layers)."""
@@ -370,6 +393,7 @@ def kernel_phase(model, layers):
             bound(2 * 4 * x32.numel(), adds))
 
     print("rt_fused vs plain (csrc/rt_fused.cu)", flush=True)
+    rows = N_BATCH * L_BATCH
     for cin, cout, s in layers:
         A = (A0 * (1.0 + 0.1 * rnd(p, v, v))).contiguous()
         W = rnd(p, cin, cout, scale=cin**-0.5)
@@ -385,12 +409,32 @@ def kernel_phase(model, layers):
         ms = time_ms(lambda: rt_fused_core(x32, A, W, beff, gamma, s))
         plain_ms = time_ms(lambda: rt_fused_plain(x32, A, W, beff, gamma, s))
         k = gamma // s
-        rows = N_BATCH * L_BATCH
         flops = 2 * rows * v * p * cin * (v + cout) + N_BATCH * v * cout * sum(
             min(k, t // s + 1) - 1 for t in range(L_BATCH))
-        nbytes = 4 * (rows * v * (cin + cout) + p * v * v + p * cin * cout + v * cout)
+        values = rows * v * (cin + cout) + p * v * v + p * cin * cout + v * cout
         add("rt_fused", (N_BATCH, L_BATCH, v, cin, cout, gamma, s), err, ms, plain_ms,
-            None, bound(nbytes, flops))
+            None, bound(4 * values, flops))
+        # the yardstick: the port's unfused kernels for the same function,
+        # gcn_core then window_sum, and the bf16 kernel beside its bound
+        xb, Ab, Wb = x32.bfloat16(), A.bfloat16(), W.bfloat16()
+        add_fused_record(
+            recs, "rt_fused", (N_BATCH, L_BATCH, v, cin, cout, gamma, s),
+            time_ms(lambda: window_sum(gcn_core(x32.view(rows, v, cin), A, W).view(
+                N_BATCH, L_BATCH, v, cout), gamma, s)),
+            time_ms(lambda: rt_fused_core(xb, Ab, Wb, beff, gamma, s)),
+            time_ms(lambda: window_sum(gcn_core(xb.view(rows, v, cin), Ab, Wb).view(
+                N_BATCH, L_BATCH, v, cout), gamma, s)),
+            bound(2 * values, flops, "bfloat16"))
+    for n_, l_, vr, pr, cin, cout, gamma_r, s in RAGGED_RT:
+        A = torch.rand(pr, vr, vr, generator=gen, device="cuda")
+        W = rnd(pr, cin, cout, scale=cin**-0.5)
+        beff = rnd(vr, cout, scale=0.1)
+        x32 = rnd(n_, l_, vr, cin)
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x = x32.to(dt)
+            compare("rt_fused", (n_, l_, vr, pr, cin, cout, gamma_r, s),
+                    lambda: rt_fused_core(x, A, W, beff, gamma_r, s),
+                    lambda: rt_fused_plain(x, A, W, beff, gamma_r, s), str(dt)[6:], tol)
     return recs
 
 
@@ -404,6 +448,15 @@ def check_repeatable(name, kern):
           f"{name}: two calls on the same inputs differ")
 
 
+def print_split(name, dt, prof, parts):
+    """The device time of a wrapper's kernels by name, summed over the 9
+    layers (torch.profiler; a kernel's name, a template, ends in '<...>')."""
+    split = {part: sum(t["ms"] for t in prof["top_kernels"] if f"::{part}<" in t["name"])
+             for part in parts}
+    print(f"  {name} split over the 9 layers, {dt}: "
+          + ", ".join(f"{part} {ms:.4f} ms" for part, ms in split.items()), flush=True)
+
+
 def backward_kernel_phase(model, layers):
     """The two backward kernels against their plain versions at the training
     path's shapes (N_TRAIN x L_TRAIN frames, each of the 9 layers), fp32 and
@@ -411,8 +464,10 @@ def backward_kernel_phase(model, layers):
     import torch
 
     from stgx_torch.bench.train_throughput import profile_steps
+    from stgx_torch.ops.gcn_core import gcn_core
     from stgx_torch.ops.gcn_grads import gcn_grads, gcn_grads_plain
     from stgx_torch.ops.rt_fused import rt_fused_bwd, rt_fused_bwd_plain
+    from stgx_torch.ops.window_sum import window_sum
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     v, p, gamma = model.num_joints, model.partitions, model.kernel
@@ -456,10 +511,7 @@ def backward_kernel_phase(model, layers):
     # the device time of gcn_grads' own kernels, summed over the 9 layers
     for k, dt in enumerate(("float32", "bfloat16")):
         prof = profile_steps(lambda: [gcn_grads(*inputs[k]) for inputs in split_inputs])
-        split = {part: sum(t["ms"] for t in prof["top_kernels"] if f"(anonymous namespace)::{part}" in t["name"])
-                 for part in ("gw_kernel", "ga_kernel", "reduce_kernel")}
-        print(f"  gcn_grads split over the 9 layers, {dt}: "
-              + ", ".join(f"{part} {ms:.4f} ms" for part, ms in split.items()), flush=True)
+        print_split("gcn_grads", dt, prof, ("gw_kernel", "ga_kernel", "reduce_kernel"))
     del split_inputs
     for r_, vr, pr, cin, cout in RAGGED_GCN:
         A = torch.rand(pr, vr, vr, generator=gen, device="cuda")
@@ -472,6 +524,7 @@ def backward_kernel_phase(model, layers):
             check_repeatable("gcn_grads", lambda: gcn_grads(x, g, A, W))
 
     print("rt_fused_bwd vs plain (csrc/rt_fused_bwd.cu)", flush=True)
+    split_inputs = []
     for cin, cout, s in layers:
         A = (model.A * (1.0 + 0.1 * rnd(p, v, v))).contiguous()
         W = rnd(p, cin, cout, scale=cin**-0.5)
@@ -491,10 +544,42 @@ def backward_kernel_phase(model, layers):
         window_adds = n * v * cout * sum(min(k, (l - 1 - t) // s + 1) - 1 for t in range(l))
         flops = (2 * rows * p * v * (2 * cin * cout + 3 * v * cin) + window_adds
                  + rows * v * cout)
-        nbytes = 4 * (rows * v * (2 * cin + cout) + 2 * (p * v * v + p * cin * cout)
-                      + v * cout)
+        ins, outs = rows * v * (cin + cout) + p * v * v + p * cin * cout, (
+            rows * v * cin, p * v * v + p * cin * cout + v * cout)
         add_record(recs, "rt_fused_bwd", (n, l, v, cin, cout, gamma, s), errs[torch.float32],
-                   ms, plain_ms, None, bound(nbytes, flops))
+                   ms, plain_ms, None, bound(4 * (ins + sum(outs)), flops))
+
+        # the yardstick: the port's unfused backward kernels for the same
+        # function, window_sum reverse, gcn_core on (gy, A^T, W^T), gcn_grads
+        def unfused(x, g, A, W):
+            gy = window_sum(g, gamma, s, reverse=True).view(rows, v, cout)
+            return (gcn_core(gy, A.transpose(1, 2).contiguous(), W.transpose(1, 2).contiguous()),
+                    gcn_grads(x.view(rows, v, cin), gy, A, W))
+
+        xb, gb, Ab, Wb = x32.bfloat16(), g32.bfloat16(), A.bfloat16(), W.bfloat16()
+        split_inputs.append(((x32, g32, A, W, gamma, s), (xb, gb, Ab, Wb, gamma, s)))
+        add_fused_record(
+            recs, "rt_fused_bwd", (n, l, v, cin, cout, gamma, s),
+            time_ms(lambda: unfused(x32, g32, A, W)),
+            time_ms(lambda: rt_fused_bwd(xb, gb, Ab, Wb, gamma, s)),
+            time_ms(lambda: unfused(xb, gb, Ab, Wb)),
+            bound(2 * (ins + outs[0]) + 4 * outs[1], flops, "bfloat16"))
+    # the device time of rt_fused_bwd's own kernels, summed over the 9 layers
+    for k, dt in enumerate(("float32", "bfloat16")):
+        prof = profile_steps(lambda: [rt_fused_bwd(*inputs[k]) for inputs in split_inputs])
+        print_split("rt_fused_bwd", dt, prof, ("window_row_kernel", "gw_kernel", "ga_kernel",
+                                               "reduce_kernel"))
+    del split_inputs
+    for n_, l_, vr, pr, cin, cout, gamma_r, s in RAGGED_RT:
+        A = torch.rand(pr, vr, vr, generator=gen, device="cuda")
+        W = rnd(pr, cin, cout, scale=cin**-0.5)
+        x32, g32 = rnd(n_, l_, vr, cin), rnd(n_, l_, vr, cout)
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x, g = x32.to(dt), g32.to(dt)
+            compare("rt_fused_bwd", (n_, l_, vr, pr, cin, cout, gamma_r, s),
+                    lambda: rt_fused_bwd(x, g, A, W, gamma_r, s),
+                    lambda: rt_fused_bwd_plain(x, g, A, W, gamma_r, s), str(dt)[6:], tol)
+            check_repeatable("rt_fused_bwd", lambda: rt_fused_bwd(x, g, A, W, gamma_r, s))
     return recs
 
 
@@ -1141,15 +1226,17 @@ def run() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["_tb"] >= r["_to"] else "operations",
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("route_bound_ms", "bf16_ms", "bf16_library_ms",
-                                 "bf16_bound_ms") if k in r},
+            **{k: r[k] for k in ("route_bound_ms", "unfused_ms", "bf16_ms", "bf16_library_ms",
+                                 "bf16_unfused_ms", "bf16_bound_ms") if k in r},
         })
     print("kernel times are summed over the 9 layers at fp32: the forward kernels at "
           f"one batch forward's shapes (N={N_BATCH}, L={L_BATCH}), the backward ones at "
           f"one train step's (N={N_TRAIN}, L={L_TRAIN}); temporal_shift over the 20 "
           f"launches of one Shift-GCN forward of {SG_WINDOWS} windows; launches are those "
           f"of the serving and training paths of both models; gcn_core and gcn_grads "
-          f"also give their fp32 route's bound and their bf16 times and bound",
+          f"also give their fp32 route's bound and their bf16 times and bound, rt_fused "
+          f"and rt_fused_bwd the port's unfused kernels for the same function "
+          f"(unfused_ms) and their bf16 times and bound",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

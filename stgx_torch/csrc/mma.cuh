@@ -1,11 +1,11 @@
 // Tensor-core and async-copy helpers of the graph-conv kernels
-// (gcn_core.cu, gcn_grads.cu): cp.async staging with zero fill, the warp
+// (gcn_core.cuh, gcn_grads.cuh): cp.async staging with zero fill, the warp
 // matrix products mma.sync m16n8k8 (TF32) and m16n8k16 (bf16), and the
 // fragment loaders for tiles in shared memory.
 //
 // Two routes, one interface (Op::kK is the depth of one step, Op::A / Op::B
 // the fragments, Op::mma adds a 16 x 8 product into an fp32 accumulator):
-//  * Tf32x3, fp32 operands (gcn_grads.cu): each value is split as v = hi + lo, hi = v
+//  * Tf32x3, fp32 operands (gcn_grads.cuh): each value is split as v = hi + lo, hi = v
 //    rounded to TF32 (10 mantissa bits, as cvt.rna.tf32.f32 rounds) and
 //    lo = the rest rounded again, and a product is hi*hi + hi*lo + lo*hi on the
 //    TF32 tensor cores: close to fp32 accuracy (the dropped lo*lo and the

@@ -117,13 +117,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stgx_gcn_core.restype = i
     lib.stgx_window_sum.argtypes = [p, p, ll, i, ll, i, i, i, i, p]
     lib.stgx_window_sum.restype = i
-    lib.stgx_rt_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.stgx_rt_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused.restype = i
     lib.stgx_gcn_grads.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i,
                                    i, p]
     lib.stgx_gcn_grads.restype = i
-    lib.stgx_rt_fused_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                      i, i, i, i, i, i, i, i, p]
+    lib.stgx_rt_fused_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                      i, i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused_bwd.restype = i
     lib.stgx_temporal_shift.argtypes = [p, p, p, ll, i, i, i, i, i, i, p]
     lib.stgx_temporal_shift.restype = i

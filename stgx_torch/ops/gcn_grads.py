@@ -28,8 +28,9 @@ of the inputs and splits the fp32 intermediates T_p and U_p into bf16
 ``hi + lo`` for the second products, so neither route rounds an
 intermediate to 16 bits.
 
-``grads_splits`` and ``grads_workspaces`` size the partial sums of the
-other backward kernel, ``rt_fused_bwd`` (``csrc/grads.cuh``).
+The kernels live in ``csrc/gcn_grads.cuh``, which ``rt_fused_bwd`` shares:
+it runs them on the window-sum of its upstream gradient, with the same row
+splits.
 """
 
 from __future__ import annotations
@@ -38,13 +39,10 @@ import torch
 
 from stgx_torch import kernels
 
-__all__ = ["gcn_grads", "gcn_grads_plain", "gcn_grads_splits", "grads_splits",
-           "grads_workspaces"]
+__all__ = ["gcn_grads", "gcn_grads_plain", "gcn_grads_splits"]
 
 SMS = 132  # the H100's streaming multiprocessors
-TILE = 64  # output tile edge of rt_fused_bwd's grads kernels (csrc/grads.cuh: kGT)
-_BLOCKS = 2 * SMS  # those kernels hold two blocks on each SM
-# gcn_grads.cu: the C_in tiles of its gW and gA kernels (kWC, kAC), its
+# gcn_grads.cuh: the C_in tiles of its gW and gA kernels (kWC, kAC), its
 # gW kernel's C_out tile (64 up to 64 columns, else 128), and the partitions
 # a block takes (kPB)
 GW_TILE_C, GA_TILE_C, PART_GROUP = 64, 32, 3
@@ -61,31 +59,6 @@ def gcn_grads_splits(rows: int, p: int, cin: int, cout: int):
     tiles_w = groups * -(-cin // GW_TILE_C) * -(-cout // tile_d)
     tiles_a = groups * -(-cin // GA_TILE_C)
     return tuple(max(1, min(rows, SMS // tiles, 65535)) for tiles in (tiles_w, tiles_a))
-
-
-def grads_splits(rows: int, cin: int, cout: int):
-    """``(splits_w, splits_a)``: how many row splits rt_fused_bwd's gW and
-    gA kernels (``csrc/grads.cuh``) take, so that each launches at most two
-    blocks for each of the 132 SMs (both kernels hold two blocks an SM),
-    never a partial second round."""
-    ct, dt = -(-cin // TILE), -(-cout // TILE)
-    splits_w = max(1, min(rows, _BLOCKS // (ct * dt), 65535))
-    splits_a = max(1, min(rows, _BLOCKS // ct, 65535))
-    return splits_w, splits_a
-
-
-def grads_workspaces(rows, v, p, cin, cout, device, gbe: bool = False):
-    """The fp32 partial-sum workspaces of rt_fused_bwd's grads kernels
-    (sizes as in ``csrc/grads.cuh``) and the split counts they were sized
-    for."""
-    splits_w, splits_a = grads_splits(rows, cin, cout)
-    ct = -(-cin // TILE)
-
-    def ws(n):
-        return torch.empty(n, dtype=torch.float32, device=device)
-
-    return (splits_w, splits_a, ws(splits_w * p * cin * cout),
-            ws(splits_a * ct * p * v * v), ws(splits_w * v * cout) if gbe else None)
 
 
 def gcn_grads_plain(x, g, A, W):

@@ -6,28 +6,33 @@ pre-window-sum activation never reaches device memory.
 
 Bound on the H100: operations, as for :mod:`stgx_torch.ops.gcn_core`; the
 kernel reads x and writes y and nothing else of size. The design answer,
-in the source's note: the TPU kernel carried a ``(K−1)·s``-frame halo from
-one time tile to the next in a sequential grid, which blocks running in no
-order cannot do, so each block recomputes the graph conv for the halo
-frames before its tile (8 extra frames per 32 at Γ=9, s=1) and stays
-independent.
+in the source's note: gcn_core's tile code at gcn_core's tiles
+(:func:`core_tile`) writes ``z = gcn(x) + beff`` once, in fp32, to a
+workspace, and one window pass sums its taps and writes y; the unfused
+chain's separate bias pass and its bf16 round trips go. A ring of z in
+shared memory (the TPU kernel's carried halo) and the window moved onto
+the input were built first and measured; the source's note says why each
+gave way.
 
-Numerics: the bias enters before the window-sum (frames before t=0 stay
-zero, the empty-FIFO edge), and the window sums in fp32 before the one cast
-to x's type, as the TPU kernel did.
+Numerics: the window sums z in fp32 in the order ``j = 0, 1, …`` (frames
+before t=0 are zero, the empty-FIFO edge) and casts once to x's type. In
+fp32 y has the unfused chain's bits (gcn_core, the bias add, window_sum);
+bf16 runs gcn_core's tensor-core route with z and the window in fp32.
 
 Gradient: :func:`rt_fused_core` is a ``torch.autograd.Function``, the port
 of the JAX ``custom_vjp`` (``_rt_fwd``/``_rt_bwd``). Its backward is
-:func:`rt_fused_bwd`, the hand-written CUDA kernel ``csrc/rt_fused_bwd.cu``
-that replaces ``stgx/ops/rt_fused.py:_bwd_kernel`` (launched by
-``_bwd_call``). It returns ``(gx, gA, gW, gbe)``: the anti-causal
-window-sum ``gy`` of the upstream gradient is formed in shared memory and
-never written, ``gx`` is the graph conv of ``gy`` on ``(Aᵀ, Wᵀ)``, and
-``gA``, ``gW`` and ``gbe = Σ gy`` are fp32 sums over all frames, taken as
-per-block partials and added in a fixed order (no atomics). Bound on the
-H100: operations, ``2·P·V·(2·C_in·C_out + 3·V·C_in)`` flops a frame for
-``(gx, gA, gW)`` against x and g read and gx written. ``beff`` is formed
-outside the Function, so autograd routes ``gbe`` to A and b, as in JAX.
+:func:`rt_fused_bwd`, the hand-written CUDA kernels of
+``csrc/rt_fused_bwd.cu`` that replace ``stgx/ops/rt_fused.py:_bwd_kernel``
+(launched by ``_bwd_call``). It returns ``(gx, gA, gW, gbe)``: the
+anti-causal window sum ``gy`` of the upstream gradient is formed once into
+a workspace (fp32, or bf16 hi + lo), ``gA`` and ``gW`` are ``gcn_grads``'
+tensor-core kernels on ``(x, gy)`` with its row splits (in fp32 the
+unfused chain's bits), ``gx = Σ_p A_p·U_p`` comes from the
+``U_p = gy·W_pᵀ`` tile the gA kernel forms anyway, and ``gbe = Σ gy``; the
+fp32 sums are split partials added in a fixed order (no atomics). Bound on the H100: operations,
+``2·P·V·(2·C_in·C_out + 3·V·C_in)`` flops a frame for ``(gx, gA, gW)``
+against x and g read and gx written. ``beff`` is formed outside the
+Function, so autograd routes ``gbe`` to A and b, as in JAX.
 
 :func:`rt_fused_gcn_acc` keeps the JAX package's dispatch rule
 (``stgx/ops/rt_fused.py:398-405``): when the halo exceeds the TPU kernel's
@@ -40,8 +45,8 @@ from __future__ import annotations
 import torch
 
 from stgx_torch import kernels
-from stgx_torch.ops.gcn_core import gcn_core_plain
-from stgx_torch.ops.gcn_grads import gcn_grads_plain, grads_workspaces
+from stgx_torch.ops.gcn_core import core_tile, gcn_core_plain
+from stgx_torch.ops.gcn_grads import gcn_grads_plain, gcn_grads_splits
 from stgx_torch.ops.graph_conv import partitioned_gcn
 from stgx_torch.ops.temporal import causal_accumulate
 from stgx_torch.ops.window_sum import window_sum_plain
@@ -78,6 +83,13 @@ def _tile_t(cin: int, cout: int, fwd: bool) -> int:
     return 64 if c <= 128 else 32
 
 
+def workspace_floats(n: int) -> int:
+    """fp32 elements of the workspace for n values of gy: n in fp32, or bf16
+    hi and lo, the lo part 16 bytes aligned (``csrc/window.cuh``:
+    lo_offset)."""
+    return -(-n // 8) * 8
+
+
 def rt_fused_plain(x, A, W, beff, gamma: int, stride: int):
     """The plain PyTorch version: graph conv and bias in fp32, window-sum in
     fp32, one cast to x's type."""
@@ -103,9 +115,11 @@ def _fwd(x, A, W, beff, gamma: int, stride: int):
     if n * l == 0:
         return y
     taps = max(1, gamma // stride)
+    z = torch.empty(n * l * v * cout, dtype=torch.float32, device=x.device)
     rc = kernels.load().stgx_rt_fused(
-        x.data_ptr(), A.data_ptr(), W.data_ptr(), beff.data_ptr(), y.data_ptr(),
-        n, l, v, p, cin, cout, taps, stride, code, kernels.stream_handle(),
+        x.data_ptr(), A.data_ptr(), W.data_ptr(), beff.data_ptr(), y.data_ptr(), z.data_ptr(),
+        n, l, v, p, cin, cout, taps, stride, code | core_tile(n * l, cout) << 8,
+        kernels.stream_handle(),
     )
     kernels.check(rc, "rt_fused")
     rt_fused_core.launches += 1
@@ -161,13 +175,22 @@ def rt_fused_bwd(x, g, A, W, gamma: int, stride: int, need_gx: bool = True):
     gA = torch.empty((p, v, v), **f32)
     gW = torch.empty((p, cin, cout), **f32)
     gbe = torch.empty((v, cout), **f32)
-    splits_w, splits_a, ws_w, ws_a, ws_be = grads_workspaces(
-        rows, v, p, cin, cout, x.device, gbe=True)
+    # fp32 workspaces, as csrc/rt_fused_bwd.cu lays them out: gy (fp32, or
+    # bf16 hi then lo), the split partials, and gx's partition-group slices
+    # where there are two groups or two windows of C_out
+    splits_w, splits_a = gcn_grads_splits(rows, p, cin, cout)
+    ws_g = torch.empty(workspace_floats(rows * v * cout), **f32)
+    ws_w = torch.empty(splits_w * p * cin * cout, **f32)
+    ws_a = torch.empty(splits_a * -(-cin // 32) * p * v * v, **f32)
+    ws_be = torch.empty(splits_w * v * cout, **f32)
+    ws_gx = (torch.empty(-(-p // 3) * rows * v * cin, **f32)
+             if need_gx and (p > 3 or cout > 256) else None)
     taps = max(1, gamma // stride)
     rc = kernels.load().stgx_rt_fused_bwd(
         x.data_ptr(), g.data_ptr(), A.data_ptr(), W.data_ptr(),
         gx.data_ptr() if need_gx else None, gA.data_ptr(), gW.data_ptr(),
-        gbe.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(), ws_be.data_ptr(),
+        gbe.data_ptr(), ws_g.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(),
+        ws_be.data_ptr(), ws_gx.data_ptr() if ws_gx is not None else None,
         n, l, v, p, cin, cout, taps, stride, splits_w, splits_a, code,
         kernels.stream_handle(),
     )
@@ -216,11 +239,8 @@ def rt_fused_core(x, A, W, beff, gamma: int, stride: int):
         )
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rt_fused: no kernel for device {x.device}")
-    if x.device.type == "cuda" and (v > 32 or p > 4 or n > 65535):
-        raise ValueError(
-            f"rt_fused: the kernel takes V <= 32, P <= 4, N <= 65535 "
-            f"(got {v}, {p}, {n})"
-        )
+    if x.device.type == "cuda" and (v > 32 or p > 4):
+        raise ValueError(f"rt_fused: the kernel takes V <= 32, P <= 4 (got {v}, {p})")
     return _RtCore.apply(x, A.to(x.dtype), W.to(x.dtype), beff, gamma, stride)
 
 

@@ -30,7 +30,7 @@ from stgx.ops.pallas_acc import causal_accumulate_pallas
 from stgx_torch.models.rtstgcn import RtLayer, dropout
 from stgx_torch.ops import graph_conv, rt_fused
 from stgx_torch.ops.gcn_core import gcn_core
-from stgx_torch.ops.gcn_grads import gcn_grads, gcn_grads_plain, gcn_grads_splits, grads_splits
+from stgx_torch.ops.gcn_grads import gcn_grads, gcn_grads_plain, gcn_grads_splits
 from stgx_torch.ops.window_sum import window_sum
 
 TOL = 1e-5
@@ -189,19 +189,16 @@ def test_gx_skipped_where_x_needs_no_grad(monkeypatch):
 def test_grads_splits_fill_the_card():
     """Split counts fill the card in one round and never exceed the rows:
     gcn_grads' kernels (one block an SM; gW tiles 64 x 128 or 64 x 64, gA
-    tiles 32 wide, three partitions a block) at most 132 blocks each, and
-    rt_fused_bwd's (grads.cuh, two blocks an SM, 64 x 64 tiles) at most
-    two for each of the 132 SMs, never a partial second round."""
+    tiles 32 wide, three partitions a block) at most 132 blocks each.
+    rt_fused_bwd runs the same kernels with the same splits, its gbe
+    partials summed by the gW kernel's blocks of the first C_in tile."""
     assert gcn_grads_splits(8192, 3, 64, 64) == (132, 66)
     assert gcn_grads_splits(8192, 3, 128, 256) == (33, 33)
     assert gcn_grads_splits(8192, 3, 256, 256) == (16, 16)
     assert gcn_grads_splits(8192, 4, 256, 256) == (8, 8)
     assert gcn_grads_splits(8192, 3, 1024, 1024) == (1, 4)
     assert gcn_grads_splits(1, 3, 64, 64) == (1, 1)
-    assert grads_splits(8192, 64, 64) == (264, 264)
-    assert grads_splits(8192, 256, 256) == (16, 66)
-    assert grads_splits(8192, 1024, 1024) == (1, 16)
-    assert grads_splits(1, 64, 64) == (1, 1)
+    assert gcn_grads_splits(100, 3, 64, 64) == (100, 66)
 
 
 def test_dropout_draws_from_the_generator():
