@@ -26,18 +26,31 @@ gradients against the all-plain run in float64, and a falling CE; then
 ``stgx_torch.bench.train_throughput`` at 8 x 1024 frames in fp32 and bf16,
 unfused and fused.
 
+RT-ST-GCN at Gamma = 69 follows (``configs/pku-mmd/as_is/rtstgcn_69.json``,
+the same model with 69 taps; every layer's halo is past the fused kernel's
+limit): ``window_sum`` against its plain version at the 9 layers' shapes
+and at ragged ones (the plain version's bits, device times and bounds into
+the kernels line as ``g69_`` figures), the batch forward with the fused core
+off and on (both launch gcn_core and window_sum only; logits against the
+all-plain run), one unfused train step (its exact launches, peak memory,
+first-step gradients against the all-plain run in float64), and
+``train_throughput`` in fp32 and bf16 with window_sum's share of the
+device time.
+
 Shift-GCN follows, at its PKU-MMD width (``configs/pku-mmd/as_is/shiftgcn.json``,
 W = 50, random weights from the config's seed): the ``temporal_shift``
 kernel against its plain version at the seven shapes of its 20 launches per
-forward; the offline forward of 1024 windows (exactly 20 launches, logits
-against the all-plain run); the window streaming cell at B = 1 (20 launches
-a step, logits against the all-plain cell; under LayerNorm the streamed
-logits of frame t equal the offline logits of window t); the ``window``
-``Trainer`` on synthetic trials cut into chunks of ``SG_SEGMENT`` windows
-(20 launches a chunk step, the first step's gradients against the all-plain
-run in float64, a falling CE); and ``train_throughput`` for Shift-GCN in
-fp32 and bf16. Peak device memory of the offline forward and of a train
-step is printed. Each phase prints its seconds.
+forward, and its backward kernel (``temporal_shift_bwd``) against
+``temporal_shift_vjp_plain`` at the same shapes; the offline forward of
+1024 windows (exactly 20 launches, logits against the all-plain run); the
+window streaming cell at B = 1 (20 launches a step, logits against the
+all-plain cell; under LayerNorm the streamed logits of frame t equal the
+offline logits of window t); the ``window`` ``Trainer`` on synthetic trials
+cut into chunks of ``SG_SEGMENT`` windows (20 launches of the shift and 20
+of its backward a chunk step, the first step's gradients against the
+all-plain run in float64, a falling CE); and ``train_throughput`` for
+Shift-GCN in fp32 and bf16. Peak device memory of the offline forward and
+of a train step is printed. Each phase prints its seconds.
 
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -57,6 +70,7 @@ from contextlib import contextmanager
 from unittest import mock
 
 CONFIG = "configs/pku-mmd/as_is/rtstgcn.json"
+CONFIG_69 = "configs/pku-mmd/as_is/rtstgcn_69.json"  # the same model at Gamma = 69
 NUM_CLASSES = 52
 N_BATCH, L_BATCH = 4, 1024  # batch form: captures x frames
 N_TRAIN, L_TRAIN = 8, 1024  # train step: stacked trials x frames
@@ -74,15 +88,27 @@ SG_LN_FRAMES = 96  # LayerNorm streamed == offline: frames
 # SG_SEGMENT windows (buckets of the same size), one Adam step per 2 trials
 SG_TRIALS, SG_LEN, SG_BS, SG_EPOCHS, SG_SEGMENT = 4, (300, 700), 2, 3, 256
 SG_THROUGHPUT_WINDOWS = 256  # train_throughput: windows a step
+SLEEP_CYCLES = 60_000_000  # device_ms: ~30 ms of a sleeping kernel, ahead of the host
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on the
 # CUDA cores, TF32 and bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+# fp32 arithmetic that is not an FMA (an add, a product not fused into one):
+# one instruction a lane, 128 lanes an SM, 132 SMs at 1.98 GHz; the FMA rate
+# above counts two flops an instruction
+PEAK_INSTR_S = 33.5e12
 # Shapes off the main path for the graph-conv kernels, (R, V, P, C_in, C_out):
 # C_in not a multiple of the copy width (3), C_out not one in bf16 (52, 300),
 # C_out past one 256-wide tile, P = 4 (two partition groups), V = 7
 RAGGED_GCN = [(1000, 25, 3, 3, 52), (1000, 25, 3, 200, 300), (37, 7, 4, 40, 24)]
+# Shapes off the main path for window_sum, (N, L, V, C, Gamma, s): L shorter
+# than the halo (40 < 68, 66), L not a multiple of the chunk, Q = V*C not a
+# multiple of 4 (the scalar route), stride 2 with L odd, Gamma = 9 at V = 7,
+# L = 5 and an odd C, and a halo (2099 frames) past what shared memory holds
+RAGGED_WS = [(2, 40, 25, 64, 69, 1), (2, 40, 25, 64, 69, 2), (3, 1000, 25, 64, 69, 1),
+             (2, 301, 25, 3, 69, 1), (2, 1023, 25, 128, 69, 2), (2, 45, 7, 52, 9, 1),
+             (3, 5, 25, 64, 9, 1), (1, 777, 25, 13, 9, 2), (1, 3000, 25, 8, 2100, 1)]
 # Shapes off the main path for the fused layer kernels, (N, L, V, P, C_in,
 # C_out, Gamma, s): V = 7, P = 4, C_in = 3 with C_out = 52 and 300 (L = 45,
 # not a multiple of any tile; stride 2); a sequence shorter than its halo
@@ -108,7 +134,9 @@ TOL_FP32, TOL_BF16, TOL_MODEL = 1e-4, 1e-2, 1e-4
 # 6.9e-4 (layers.7.gcn.kernel). Beside it, each parameter's kernel error
 # must stay within GRAD_VS_PLAIN times the fp32 all-plain run's own error
 # (plus TOL_FORMS): the kernels are never the less accurate side. TOL_FORMS
-# holds the fused and the unfused kernel runs against each other.
+# holds the fused and the unfused kernel runs against each other. At
+# Gamma = 69 the fp32 all-plain run is 4.55e-4 from float64 and the kernel
+# run 4.57e-4 (layers.7.gcn.kernel), inside TOL_GRAD, which holds both.
 TOL_GRAD, TOL_FORMS, GRAD_VS_PLAIN = 5e-4, 1e-5, 2.0
 # Shift-GCN's first-step gradients against float64. Any fp32 run sits far
 # from the exact value here: on the card the kernel run and the fp32
@@ -161,6 +189,28 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call, for kernels that run shorter than their
+    wrapper's host time (where ``time_ms`` reads the host): a sleeping kernel
+    holds the stream while the host queues ``calls`` calls behind it, CUDA
+    events around those calls; the median of three such runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / calls)
+    return sorted(runs)[1]
+
+
 @contextmanager
 def plain_ops():
     """Send the model's kernel calls to their plain PyTorch versions, for the
@@ -187,12 +237,12 @@ def _wrappers():
     from stgx_torch.ops.gcn_core import gcn_core
     from stgx_torch.ops.gcn_grads import gcn_grads
     from stgx_torch.ops.rt_fused import rt_fused_bwd, rt_fused_core
-    from stgx_torch.ops.shift import temporal_shift
+    from stgx_torch.ops.shift import temporal_shift, temporal_shift_bwd
     from stgx_torch.ops.window_sum import window_sum
 
     return {"gcn_core": gcn_core, "window_sum": window_sum, "rt_fused": rt_fused_core,
             "gcn_grads": gcn_grads, "rt_fused_bwd": rt_fused_bwd,
-            "temporal_shift": temporal_shift}
+            "temporal_shift": temporal_shift, "temporal_shift_bwd": temporal_shift_bwd}
 
 
 def counts():
@@ -215,10 +265,12 @@ def diff(after, before):
 # ----------------------------------------------------------------- kernels
 
 
-def bound(nbytes, flops, dtype="float32"):
-    """(bound ms, bytes ms, operations ms) at the H100's peaks."""
+def bound(nbytes, flops, dtype="float32", instr=0):
+    """(bound ms, bytes ms, operations ms) at the H100's peaks: ``flops`` of
+    FMAs (or tensor-core products) at the type's peak, ``instr`` other fp32
+    operations (adds, separate products) at PEAK_INSTR_S."""
     t_b = nbytes / PEAK_BYTES_S * 1e3
-    t_o = flops / PEAK_FLOPS[dtype] * 1e3
+    t_o = (flops / PEAK_FLOPS[dtype] + instr / PEAK_INSTR_S) * 1e3
     return max(t_b, t_o), t_b, t_o
 
 
@@ -276,6 +328,78 @@ def add_record(recs, name, shape, err, ms, plain_ms, lib_ms, b):
     r["bound_ms"] += b[0]
     r["_tb"] += b[1]
     r["_to"] += b[2]
+
+
+def window_adds(n, l, q, k, s):
+    """Adds of a window-sum of k taps s apart over (n, l, q): each output's
+    taps inside the sequence, less one."""
+    return n * q * sum(min(k, t // s + 1) - 1 for t in range(l))
+
+
+def check_equal(name, got, ref):
+    """The kernel gives the plain version's bits."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    check(torch.equal(got, ref), f"{name}: not the plain version's bits (max abs err "
+          f"{rel_err(got, ref)[0]:.3e})")
+
+
+def window_records(recs, prefix, shapes, gamma, rnd):
+    """window_sum against its plain version at the 9 layers' shapes
+    ``(N_BATCH, L_BATCH, 25, C_out)`` with ``gamma`` and each layer's stride,
+    both directions, fp32 and bf16: the plain version's bits. Times are
+    device times (``device_ms``) summed over the layers, into
+    ``recs["window_sum"]`` under ``prefix`` (the Gamma = 9 record's own keys,
+    or ``g69_`` ones): fp32 forward (``ms``) and reverse, bf16 both, the
+    plain version, ``F.conv2d`` with a ones kernel (the library yardstick),
+    and the bounds (bytes, or the adds at PEAK_INSTR_S)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stgx_torch.ops.window_sum import window_sum, window_sum_plain
+
+    sums = {}
+
+    def add(key, val):
+        sums[key] = sums.get(key, 0.0) + val
+
+    for cout, s in shapes:
+        x32 = rnd(N_BATCH, L_BATCH, 25, cout)
+        k = gamma // s
+        shape = tuple(x32.shape) + (gamma, s)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            for rev in (False, True):
+                check_equal(f"window_sum {shape} {str(dt)[6:]}{' reverse' if rev else ''}",
+                            window_sum(x, gamma, s, rev), window_sum_plain(x, gamma, s, rev))
+                add(("bf16_" if dt == torch.bfloat16 else "") + ("reverse_ms" if rev else "ms"),
+                    device_ms(lambda: window_sum(x, gamma, s, rev)))
+        ones = torch.ones(1, 1, k, 1, device="cuda")
+        x4 = x32.view(N_BATCH, 1, L_BATCH, 25 * cout)
+        add("plain_ms", device_ms(lambda: window_sum_plain(x32, gamma, s), calls=3))
+        if not prefix:  # the way earlier runs timed it: host time included
+            add("wall_ms", time_ms(lambda: window_sum(x32, gamma, s)))
+        add("library_ms", device_ms(lambda: F.conv2d(x4, ones, padding=((k - 1) * s, 0),
+                                                     dilation=(s, 1))[:, :, :L_BATCH], calls=3))
+        adds = window_adds(N_BATCH, L_BATCH, 25 * cout, k, s)
+        b32, b16 = bound(8 * x32.numel(), 0, instr=adds), bound(4 * x32.numel(), 0, instr=adds)
+        for key, val in (("bound_ms", b32[0]), ("_tb", b32[1]), ("_to", b32[2]),
+                         ("bf16_bound_ms", b16[0])):
+            add(key, val)
+    by = "bytes" if sums["_tb"] >= sums["_to"] else "operations"
+    print(f"  window_sum over the 9 layers at Gamma={gamma} (device time): float32 forward "
+          f"{sums['ms']:.4f} ms, reverse {sums['reverse_ms']:.4f} ms, bound {sums['bound_ms']:.4f} "
+          f"ms ({by}); bfloat16 forward {sums['bf16_ms']:.4f} ms, reverse "
+          f"{sums['bf16_reverse_ms']:.4f} ms, bound {sums['bf16_bound_ms']:.4f} ms; plain "
+          f"{sums['plain_ms']:.4f} ms, F.conv2d {sums['library_ms']:.4f} ms", flush=True)
+    r = recs.setdefault("window_sum", {"max_abs_err": 0.0})
+    for key, val in sums.items():
+        if not key.startswith("_") or not prefix:
+            r[prefix + key] = val
+    if prefix:
+        r[prefix + "bound_by"] = by
 
 
 def compare(name, shape, kern, plain, dtype, tol):
@@ -371,26 +495,7 @@ def kernel_phase(model, layers):
                     lambda: gcn_core_plain(x, A, W), str(dt)[6:], tol)
 
     print("window_sum vs plain (csrc/window_sum.cu)", flush=True)
-    for _, cout, s in layers:
-        x32 = rnd(N_BATCH, L_BATCH, v, cout)
-        k = gamma // s
-        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
-            x = x32.to(dt)
-            for rev in (False, True):
-                e = compare(f"window_sum{' reverse' if rev else ''}", tuple(x.shape) + (gamma, s),
-                            lambda: window_sum(x, gamma, s, rev),
-                            lambda: window_sum_plain(x, gamma, s, rev), str(dt)[6:], tol)
-                if dt == torch.float32 and not rev:
-                    err = e
-        ms = time_ms(lambda: window_sum(x32, gamma, s))
-        plain_ms = time_ms(lambda: window_sum_plain(x32, gamma, s))
-        ones = torch.ones(1, 1, k, 1, device="cuda")
-        x4 = x32.view(N_BATCH, 1, L_BATCH, v * cout)
-        lib_ms = time_ms(lambda: F.conv2d(x4, ones, padding=((k - 1) * s, 0),
-                                          dilation=(s, 1))[:, :, :L_BATCH])
-        adds = N_BATCH * v * cout * sum(min(k, t // s + 1) - 1 for t in range(L_BATCH))
-        add("window_sum", tuple(x32.shape) + (gamma, s), err, ms, plain_ms, lib_ms,
-            bound(2 * 4 * x32.numel(), adds))
+    window_records(recs, "", [(cout, s) for _, cout, s in layers], gamma, rnd)
 
     print("rt_fused vs plain (csrc/rt_fused.cu)", flush=True)
     rows = N_BATCH * L_BATCH
@@ -408,12 +513,11 @@ def kernel_phase(model, layers):
                 err = e
         ms = time_ms(lambda: rt_fused_core(x32, A, W, beff, gamma, s))
         plain_ms = time_ms(lambda: rt_fused_plain(x32, A, W, beff, gamma, s))
-        k = gamma // s
-        flops = 2 * rows * v * p * cin * (v + cout) + N_BATCH * v * cout * sum(
-            min(k, t // s + 1) - 1 for t in range(L_BATCH))
+        flops = 2 * rows * v * p * cin * (v + cout)
+        adds = window_adds(N_BATCH, L_BATCH, v * cout, gamma // s, s)
         values = rows * v * (cin + cout) + p * v * v + p * cin * cout + v * cout
         add("rt_fused", (N_BATCH, L_BATCH, v, cin, cout, gamma, s), err, ms, plain_ms,
-            None, bound(4 * values, flops))
+            None, bound(4 * values, flops, instr=adds))
         # the yardstick: the port's unfused kernels for the same function,
         # gcn_core then window_sum, and the bf16 kernel beside its bound
         xb, Ab, Wb = x32.bfloat16(), A.bfloat16(), W.bfloat16()
@@ -424,7 +528,7 @@ def kernel_phase(model, layers):
             time_ms(lambda: rt_fused_core(xb, Ab, Wb, beff, gamma, s)),
             time_ms(lambda: window_sum(gcn_core(xb.view(rows, v, cin), Ab, Wb).view(
                 N_BATCH, L_BATCH, v, cout), gamma, s)),
-            bound(2 * values, flops, "bfloat16"))
+            bound(2 * values, flops, "bfloat16", instr=adds))
     for n_, l_, vr, pr, cin, cout, gamma_r, s in RAGGED_RT:
         A = torch.rand(pr, vr, vr, generator=gen, device="cuda")
         W = rnd(pr, cin, cout, scale=cin**-0.5)
@@ -539,15 +643,13 @@ def backward_kernel_phase(model, layers):
             check_repeatable("rt_fused_bwd", lambda: rt_fused_bwd(x, g, A, W, gamma, s))
         ms = time_ms(lambda: rt_fused_bwd(x32, g32, A, W, gamma, s))
         plain_ms = time_ms(lambda: rt_fused_bwd_plain(x32, g32, A, W, gamma, s))
-        k = gamma // s
-        # (gx, gA, gW) at their least work, the window's adds and gbe's sum
-        window_adds = n * v * cout * sum(min(k, (l - 1 - t) // s + 1) - 1 for t in range(l))
-        flops = (2 * rows * p * v * (2 * cin * cout + 3 * v * cin) + window_adds
-                 + rows * v * cout)
+        # (gx, gA, gW) at their least work; the window's adds and gbe's sum
+        flops = 2 * rows * p * v * (2 * cin * cout + 3 * v * cin)
+        adds = window_adds(n, l, v * cout, gamma // s, s) + rows * v * cout
         ins, outs = rows * v * (cin + cout) + p * v * v + p * cin * cout, (
             rows * v * cin, p * v * v + p * cin * cout + v * cout)
         add_record(recs, "rt_fused_bwd", (n, l, v, cin, cout, gamma, s), errs[torch.float32],
-                   ms, plain_ms, None, bound(4 * (ins + sum(outs)), flops))
+                   ms, plain_ms, None, bound(4 * (ins + sum(outs)), flops, instr=adds))
 
         # the yardstick: the port's unfused backward kernels for the same
         # function, window_sum reverse, gcn_core on (gy, A^T, W^T), gcn_grads
@@ -563,11 +665,11 @@ def backward_kernel_phase(model, layers):
             time_ms(lambda: unfused(x32, g32, A, W)),
             time_ms(lambda: rt_fused_bwd(xb, gb, Ab, Wb, gamma, s)),
             time_ms(lambda: unfused(xb, gb, Ab, Wb)),
-            bound(2 * (ins + outs[0]) + 4 * outs[1], flops, "bfloat16"))
+            bound(2 * (ins + outs[0]) + 4 * outs[1], flops, "bfloat16", instr=adds))
     # the device time of rt_fused_bwd's own kernels, summed over the 9 layers
     for k, dt in enumerate(("float32", "bfloat16")):
         prof = profile_steps(lambda: [rt_fused_bwd(*inputs[k]) for inputs in split_inputs])
-        print_split("rt_fused_bwd", dt, prof, ("window_row_kernel", "gw_kernel", "ga_kernel",
+        print_split("rt_fused_bwd", dt, prof, ("window_kernel", "gw_kernel", "ga_kernel",
                                                "reduce_kernel"))
     del split_inputs
     for n_, l_, vr, pr, cin, cout, gamma_r, s in RAGGED_RT:
@@ -739,6 +841,168 @@ def throughput_phase():
     return records
 
 
+# ------------------------------------------------------------ Gamma = 69
+
+
+def gamma69_kernel_phase(recs, layers):
+    """window_sum at Gamma = 69: the 9 layers' shapes (into the kernels line
+    as g69_ figures), the ragged shapes, repeatability."""
+    import torch
+
+    from stgx_torch.ops.window_sum import window_sum, window_sum_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    print("window_sum vs plain at Gamma=69 (csrc/window_sum.cu)", flush=True)
+    window_records(recs, "g69_", [(cout, s) for _, cout, s in layers], 69, rnd)
+    for n_, l_, v_, c_, gamma, s in RAGGED_WS:
+        x32 = rnd(n_, l_, v_, c_)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            for rev in (False, True):
+                check_equal(f"window_sum {(n_, l_, v_, c_, gamma, s)} {str(dt)[6:]}"
+                            f"{' reverse' if rev else ''}", window_sum(x, gamma, s, rev),
+                            window_sum_plain(x, gamma, s, rev))
+            # one element in: no pointer aligned for a 16-byte load (the scalar route)
+            off = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:].view(x.shape)
+            off.copy_(x)
+            check_equal(f"window_sum {(n_, l_, v_, c_, gamma, s)} {str(dt)[6:]} misaligned",
+                        window_sum(off, gamma, s), window_sum_plain(x, gamma, s))
+    print(f"  window_sum: the plain version's bits at {len(RAGGED_WS)} ragged shapes, both "
+          f"directions, fp32 and bf16, and misaligned", flush=True)
+    x = rnd(N_BATCH, L_BATCH, 25, 256)
+    check_repeatable("window_sum", lambda: (window_sum(x, 69, 1), window_sum(x, 69, 2, True)))
+
+
+def gamma69_phase(cfg):
+    """RT-ST-GCN at Gamma = 69 (CONFIG_69), full width, random weights from
+    the config's seed. Every layer's halo is past the fused kernel's limit,
+    so with set_rt_fused on or off a batch forward launches gcn_core and
+    window_sum only; its logits against the all-plain run. One unfused train
+    step of N_TRAIN x L_TRAIN frames: its launches, peak memory, and first
+    step gradients against the all-plain run in float64. Returns the launch
+    counts of the forward and the train step."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.config import build_model
+    from stgx_torch.ops.rt_fused import set_rt_fused
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.utils import LOSS
+
+    model = build_model(cfg, NUM_CLASSES)
+    n = len(model.layers)
+    check(model.kernel == 69, f"{CONFIG_69}: Gamma {model.kernel}")
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.tensor(rng.normal(size=(N_BATCH, L_BATCH, model.num_joints, model.in_feat)),
+                     dtype=torch.float32, device="cuda")
+    none = {k: 0 for k in counts()}
+    parts, ys = {}, {}
+    with torch.inference_mode():
+        for fused in (False, True):
+            set_rt_fused(fused)
+            name = "fused" if fused else "unfused"
+            reset_counts()
+            ys[name] = model(x)
+            torch.cuda.synchronize()
+            parts[name] = counts()
+            check(parts[name] == {**none, "gcn_core": n, "window_sum": n},
+                  f"Gamma=69 batch forward ({name} asked) launched {parts[name]}")
+        set_rt_fused(False)
+        before = counts()
+        with plain_ops():
+            y_plain = model(x)
+        check(counts() == before, "the plain reference run launched a kernel")
+        for name, y in ys.items():
+            check(y.shape == (N_BATCH, L_BATCH, NUM_CLASSES), f"shape {tuple(y.shape)}")
+            check(bool(torch.isfinite(y).all()), f"Gamma=69 batch form {name}: non-finite")
+            err, rel = rel_err(y, y_plain)
+            print(f"Gamma=69 batch form ({name} asked) vs all-plain: max abs err {err:.3e} "
+                  f"(relative {rel:.3e}, tolerance {TOL_MODEL:g}); launches "
+                  f"{json.dumps(parts[name])}", flush=True)
+            check(rel <= TOL_MODEL, f"Gamma=69 batch form {name}: relative error {rel:.3e}")
+        ms = time_ms(lambda: model(x), reps=5, warm=1)
+        with plain_ops():
+            plain_ms = time_ms(lambda: model(x), reps=5, warm=1)
+    print(f"Gamma=69 batch form forward, N={N_BATCH} x L={L_BATCH}, fp32: {ms:.3f} ms "
+          f"({N_BATCH * L_BATCH / ms * 1e3:.0f} frames/s); all-plain {plain_ms:.3f} ms",
+          flush=True)
+
+    # one unfused train step, every trial full length
+    trainer = Trainer(model=model, kind="frame",
+                      loss=LOSS["rt-st-gcn"](np.ones(NUM_CLASSES, np.float32)),
+                      opt=OptimizerConfig(learning_rate=cfg["optimizer"]["learning_rate"],
+                                          batch_size=N_TRAIN, seed=SEED),
+                      bucket=L_TRAIN, trial_batch=N_TRAIN)
+    xt = torch.tensor(rng.normal(size=(N_TRAIN, L_TRAIN, model.num_joints, model.in_feat)),
+                      dtype=torch.float32, device="cuda")
+    yt = torch.tensor(rng.integers(0, NUM_CLASSES, size=(N_TRAIN, L_TRAIN)), device="cuda")
+    batch = (xt, yt, torch.ones((N_TRAIN, L_TRAIN), dtype=torch.float32, device="cuda"))
+    before = counts()
+    exact = float64_grads(trainer, batch)
+    with plain_ops():
+        ref = first_step_grads(trainer, batch)
+    check(counts() == before, "the all-plain training steps launched a kernel")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got = first_step_grads(trainer, batch)
+    torch.cuda.synchronize()
+    parts["train"] = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**none, "gcn_core": 2 * n, "gcn_grads": n, "window_sum": 2 * n}
+    print(f"Gamma=69 train step, {N_TRAIN} x {L_TRAIN} frames: launches "
+          f"{json.dumps(parts['train'])}; peak device memory {peak / 2**20:.1f} MiB",
+          flush=True)
+    check(parts["train"] == want, f"Gamma=69 train step launched {parts['train']}, want {want}")
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          "Gamma=69 train: non-finite gradients")
+    worst, plain32 = worst_grad_err(got, exact), worst_grad_err(ref, exact)
+    print(f"Gamma=69 train: first-step gradients vs all-plain float64, worst relative error "
+          f"{worst[0]:.3e} ({worst[1]}, tolerance {TOL_GRAD:g}); the fp32 all-plain run's "
+          f"{plain32[0]:.3e} ({plain32[1]}); kernels vs fp32 all-plain "
+          f"{worst_grad_err(got, ref)[0]:.3e}", flush=True)
+    errs = sorted(((grad_err(got[k], exact[k]), grad_err(ref[k], exact[k]), k) for k in exact),
+                  reverse=True)
+    for e_k, e_p, k in errs[:5]:
+        print(f"  {k}: kernels {e_k:.3e}, fp32 all-plain {e_p:.3e} from float64", flush=True)
+    check(worst[0] <= TOL_GRAD, f"Gamma=69 train: gradient {worst[1]} off by {worst[0]:.3e}")
+    for e_k, e_p, k in errs:
+        check(e_k <= GRAD_VS_PLAIN * e_p + TOL_FORMS,
+              f"Gamma=69 train: gradient {k} {e_k:.3e} from float64, the fp32 all-plain run "
+              f"only {e_p:.3e}")
+    return parts
+
+
+def gamma69_throughput_phase(cfg):
+    """train_throughput at Gamma = 69, 8 x 1024 frames, fp32 and bf16, and
+    window_sum's share of the device time of a step (a profile of every
+    kernel of train_throughput's step)."""
+    import numpy as np
+
+    from stgx_torch.bench import train_throughput
+    from stgx_torch.config import build_model
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.utils import LOSS
+
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        rec = train_throughput.main(["--config", CONFIG_69, "--dtype", dtype, "--trials",
+                                     str(N_TRAIN), "--frames", str(L_TRAIN), "--profile"])
+        trainer = Trainer(model=build_model(cfg, NUM_CLASSES), kind="frame",
+                          loss=LOSS["rt-st-gcn"](np.ones(NUM_CLASSES, np.float32)),
+                          opt=OptimizerConfig(learning_rate=1e-4), compute_dtype=dtype)
+        prof = train_throughput.profile_steps(
+            train_throughput.make_step(trainer, N_TRAIN, L_TRAIN), top=None)
+        window = sum(t["ms"] for t in prof["top_kernels"] if "window_kernel<" in t["name"])
+        rec["window_share"] = window / prof["device_busy_ms_per_step"]
+        records.append(rec)
+    return records
+
+
 # ---------------------------------------------------------------- Shift-GCN
 
 
@@ -767,7 +1031,12 @@ def shift_kernel_phase(shapes):
     import numpy as np
     import torch
 
-    from stgx_torch.ops.shift import temporal_shift, temporal_shift_plain
+    from stgx_torch.ops.shift import (
+        temporal_shift,
+        temporal_shift_bwd,
+        temporal_shift_plain,
+        temporal_shift_vjp_plain,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rng = np.random.default_rng(SEED)
@@ -791,12 +1060,41 @@ def shift_kernel_phase(shapes):
         plain_ms = time_ms(lambda: temporal_shift_plain(x32, shift, s))
         lo = -(-l // s)
         # one read of x and of the shifts, one write of y; 3 operations an
-        # output (two products, one add)
+        # output (two products, one add, not fused)
         nbytes = 4 * (SG_WINDOWS * 25 * c * (l + lo) + c)
-        b = bound(nbytes, 3 * SG_WINDOWS * lo * 25 * c)
+        b = bound(nbytes, 0, instr=3 * SG_WINDOWS * lo * 25 * c)
         print(f"  x {count} launches per forward", flush=True)
         add_record(recs, "temporal_shift", shape, errs[torch.float32], count * ms,
                    count * plain_ms, None, tuple(count * t for t in b))
+
+        # the backward kernel at a train step's SG_THROUGHPUT_WINDOWS windows
+        n = SG_THROUGHPUT_WINDOWS
+        x32, g32 = x32[:n], torch.randn(n, lo, 25, c, generator=gen, device="cuda")
+        shape = (n, l, 25, c, s)
+        err = 0.0
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            x, g, sh = x32.to(dt), g32.to(dt), shift.to(dt)
+            gx, gs = temporal_shift_bwd(x, sh, g, s)
+            ref_gx, ref_gs = temporal_shift_vjp_plain(x, sh, g, s)
+            check_equal(f"temporal_shift_bwd {shape} {str(dt)[6:]} gx", gx, ref_gx)
+            e, rel = rel_err(gs, ref_gs)
+            print(f"  temporal_shift_bwd {shape} {str(dt)[6:]}: gx the plain version's bits; "
+                  f"g_shift max abs err {e:.3e} (relative {rel:.3e}, tolerance {tol:g})",
+                  flush=True)
+            check(bool(torch.isfinite(gs.float()).all()), "temporal_shift_bwd: non-finite")
+            check(rel <= tol, f"temporal_shift_bwd {shape} {dt}: g_shift relative error {rel:.3e}")
+            check_repeatable("temporal_shift_bwd", lambda: temporal_shift_bwd(x, sh, g, s))
+            if dt == torch.float32:
+                err = e
+        ms = device_ms(lambda: temporal_shift_bwd(x32, shift, g32, s))
+        plain_ms = device_ms(lambda: temporal_shift_vjp_plain(x32, shift, g32, s), calls=3)
+        # one read of g and x, one write of gx (and the shifts, g_shift);
+        # 3 operations an input element (gx), 3 an output (g_shift's product,
+        # difference and add)
+        nbytes = 4 * (n * 25 * c * (lo + 2 * l) + 2 * c)
+        b = bound(nbytes, 0, instr=3 * n * 25 * c * (l + lo))
+        add_record(recs, "temporal_shift_bwd", shape, err, count * ms, count * plain_ms, None,
+                   tuple(count * t for t in b))
     return recs
 
 
@@ -987,8 +1285,9 @@ def shift_training_phase(cfg, data_dir):
           f"{np.round(ces, 4).tolist()}; eval CE {ce0:.4f} -> {ce1:.4f}; launches "
           f"{json.dumps(launched)}", flush=True)
     check(np.isfinite(ces).all() and ce1 < ce0, "Shift-GCN train: CE did not fall")
-    check(launched == {**{k: 0 for k in launched}, "temporal_shift": 20 * steps},
-          f"Shift-GCN train: launches {launched}, want {20 * steps} temporal_shift")
+    want = {**{k: 0 for k in launched}, "temporal_shift": 20 * steps,
+            "temporal_shift_bwd": 20 * steps}
+    check(launched == want, f"Shift-GCN train: launches {launched}, want {want}")
     return launched
 
 
@@ -1170,7 +1469,7 @@ def run() -> int:
     phase_done("training path", t_phase)
     for part in trained.values():
         launched = {k: launched[k] + part[k] for k in launched}
-    check(all(v > 0 for k, v in launched.items() if k != "temporal_shift"),
+    check(all(v > 0 for k, v in launched.items() if not k.startswith("temporal_shift")),
           f"an RT-ST-GCN kernel never launched: {launched}")
 
     t_phase = time.perf_counter()
@@ -1182,6 +1481,23 @@ def run() -> int:
               f"{rec['trials']} x {rec['frames']} frames: p50 {rec['step_ms_p50']:.3f} ms, "
               f"{rec['frames_per_s']:.0f} frames/s, {rec['model_tflops']:.3f} model "
               f"TFLOP/s ({100 * rec['peak_share']:.2f} % of peak) [{smi_now}]", flush=True)
+
+    # RT-ST-GCN at Gamma = 69: window_sum at its shapes, then the batch
+    # forward and a train step with the counters at zero
+    t_phase = time.perf_counter()
+    gamma69_kernel_phase(recs, layers)
+    cfg69 = load_config(CONFIG_69)
+    for part in gamma69_phase(cfg69).values():
+        launched = {k: launched[k] + part[k] for k in launched}
+    g69_throughput = gamma69_throughput_phase(cfg69)
+    smi_now = smi_line()
+    for rec in g69_throughput:
+        prof = rec["profile"]
+        print(f"Gamma=69 train step {rec['dtype']}, {rec['trials']} x {rec['frames']} frames: "
+              f"p50 {rec['step_ms_p50']:.3f} ms, {rec['frames_per_s']:.0f} frames/s, device "
+              f"busy {100 * prof['busy_share']:.1f} %, window_sum "
+              f"{100 * rec['window_share']:.1f} % of device time [{smi_now}]", flush=True)
+    phase_done("Gamma=69", t_phase)
 
     # Shift-GCN: its kernel against the plain version, then its serving and
     # training paths, each with the launch counters at zero
@@ -1216,6 +1532,8 @@ def run() -> int:
         "gcn_grads": ("stgx_torch/csrc/gcn_grads.cu", "stgx/ops/pallas_gcn.py:137"),
         "rt_fused_bwd": ("stgx_torch/csrc/rt_fused_bwd.cu", "stgx/ops/rt_fused.py:217"),
         "temporal_shift": ("stgx_torch/csrc/temporal_shift.cu", "stgx/ops/shift.py:96"),
+        # no TPU kernel: the JAX VJP of the shift (_ts_bwd) is XLA
+        "temporal_shift_bwd": ("stgx_torch/csrc/temporal_shift.cu", "stgx/ops/shift.py:149"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1226,8 +1544,8 @@ def run() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["_tb"] >= r["_to"] else "operations",
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("route_bound_ms", "unfused_ms", "bf16_ms", "bf16_library_ms",
-                                 "bf16_unfused_ms", "bf16_bound_ms") if k in r},
+            **{k: v for k, v in r.items() if not k.startswith("_") and k not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         })
     print("kernel times are summed over the 9 layers at fp32: the forward kernels at "
           f"one batch forward's shapes (N={N_BATCH}, L={L_BATCH}), the backward ones at "

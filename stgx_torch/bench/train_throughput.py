@@ -101,10 +101,10 @@ def measure_train_throughput(trainer: Trainer, trials: int = 8, frames: int = 10
     return per_step / p50 * 1e3, p50, step_ms
 
 
-def profile_steps(step) -> dict:
+def profile_steps(step, top: int | None = PROFILE_TOP) -> dict:
     """Device time of ``PROFILE_STEPS`` calls of ``step`` by kernel name, per
-    step (the ``PROFILE_TOP`` longest), and the device's busy share of the
-    profiled window's wall time."""
+    step (the ``top`` longest, every kernel for None), and the device's busy
+    share of the profiled window's wall time."""
     import time
 
     from torch.autograd import DeviceType
@@ -132,7 +132,7 @@ def profile_steps(step) -> dict:
         "busy_share": busy * PROFILE_STEPS / wall_ms,
         "launches_per_step": sum(k[2] for k in kernels),
         "top_kernels": [{"name": n[:120], "ms": ms, "launches": c}
-                        for n, ms, c in kernels[:PROFILE_TOP]],
+                        for n, ms, c in kernels[:top]],
     }
 
 

@@ -99,19 +99,20 @@ def build_model(cfg: dict, num_classes: int, device=None,
     arch = cfg["arch"]
     name = cfg["processor"]["model"]
     model_cls = MODELS[name]  # raises for the families not ported yet
-    sub = arch.get(name, {})
     kw = dict(
         num_classes=num_classes,
         in_feat=arch["in_feat"],
         graph=load_skeleton(cfg["processor"]["graph"]),
         strategy=arch.get("strategy", "spatial"),
         normalization=arch.get("normalization", "BatchNorm"),
+        remat=bool(arch.get("remat", False)),
     )
     # each family's own keywords, as stgx/config.py passes them
     if name == "shift-gcn":
-        kw["remat"] = bool(arch.get("remat", False))
+        sub = arch.get(name, {})
         layer_keys = ("in_ch", "out_ch", "stride", "residual")
     else:
+        sub = arch.get(name, arch.get("st-gcn", {}))
         kw["kernel"] = sub.get("kernel", arch.get("kernel", 9))
         kw["importance"] = bool(sub.get("importance", True))
         layer_keys = ("in_ch", "out_ch", "stride", "residual", "dropout")

@@ -29,8 +29,9 @@
 //    tiles, occupancy and order of sums, writing z = acc + beff once, in
 //    fp32, to a workspace (the unfused chain writes z, then reads and
 //    writes it again to add the bias);
-//  * window_row_kernel (window.cuh) sums each output's K taps of z in fp32
-//    in the order j = 0, 1, ... and writes y once in x's type.
+//  * the window pass (window.cuh: window_pass, window_sum.cu's) sums each
+//    output's K taps of z in fp32 in the order j = 0, 1, ... and writes y
+//    once in x's type.
 // In fp32 y has the bits of gcn_core, the bias add and window_sum; bf16
 // keeps z and the window in fp32, as the TPU kernel did.
 //
@@ -191,7 +192,7 @@ int z_pass(int dtype, int tile, const void* x, const void* A, const void* W, con
 extern "C" int stgx_rt_fused(const void* x, const void* A, const void* W,
                              const void* beff, void* y, float* z, int N, int L, int V,
                              int P, int Cin, int Cout, int K, int stride,
-                             int mode, void* stream) {
+                             int mode, int chunk, void* stream) {
   const long long R = (long long)N * L;
   const int dtype = mode & 0xff, tile = mode >> 8;
   if (N <= 0 || L <= 0 || R > 2147483647LL || V < 1 || V > stgx::kMaxV || P < 1 ||
@@ -203,8 +204,8 @@ extern "C" int stgx_rt_fused(const void* x, const void* A, const void* W,
   if (e != 0) return e;
   const long long Q = (long long)V * Cout;
   if (dtype == 0)
-    return (int)window_rows<float, float, false>(z, 1, static_cast<float*>(y), nullptr, R, L, Q,
-                                                 K, stride, s);
-  return (int)window_rows<float, bf16, false>(z, 1, static_cast<bf16*>(y), nullptr, R, L, Q, K,
-                                              stride, s);
+    return (int)window_pass<float, float>(z, 1, static_cast<float*>(y), nullptr, N, L, Q, K,
+                                          stride, false, chunk, s);
+  return (int)window_pass<float, bf16>(z, 1, static_cast<bf16*>(y), nullptr, N, L, Q, K, stride,
+                                       false, chunk, s);
 }

@@ -14,8 +14,8 @@
 //
 // Design: gcn_grads' tensor-core kernels (gcn_grads.cuh) on gy, with gy
 // formed once and gx taken from U_p.
-//  * window_row_kernel (window.cuh) forms gy once per (frame, joint,
-//    column), its K taps summed in fp32 in the order j = 0, 1, ... (taps past
+//  * the window pass (window.cuh: window_pass, window_sum.cu's, reversed)
+//    forms gy once per (frame, joint, column), its K taps summed in fp32 in the order j = 0, 1, ... (taps past
 //    a sequence's end are zero): in fp32, or as bf16 hi + lo, since gy sums
 //    K bf16 values and is not one bf16 (rounding it would leave errors near
 //    2^-9 of the gradients, over their fp32 tolerance; the products of gy
@@ -33,7 +33,7 @@
 //    backward runs for gx (gcn_core on gy, A^T, W^T) with 2*P*V*V*C_in
 //    flops a row. With P = 4 (two partition groups) or C_out > 256 (two
 //    windows of U_p) the tiles are summed in fp32 workspace slices and
-//    added in group order by window_row_kernel with one tap.
+//    added in group order by the window pass with one tap.
 //  * The fp32 partials of gA, gW and gbe are added in split order by a
 //    last pass: the same result run to run, no atomics.
 #include "gcn_grads.cuh"
@@ -49,7 +49,8 @@ template <typename T>
 int backward(const void* xv, const void* gv, const void* Av, const void* Wv, void* gxv,
              float* gA, float* gW, float* gbe, float* ws_g, float* ws_w, float* ws_a,
              float* ws_be, float* ws_gx, long long R, int V, int P, int Cin, int Cout, int L,
-             int K, int stride, int splits_w, int splits_a, cudaStream_t stream) {
+             int K, int stride, int splits_w, int splits_a, int chunk_g, int chunk_x,
+             cudaStream_t stream) {
   constexpr int GS = sizeof(T) == 4 ? 1 : 2;
   const T* x = static_cast<const T*>(xv);
   const T* A = static_cast<const T*>(Av);
@@ -60,8 +61,9 @@ int backward(const void* xv, const void* gv, const void* Av, const void* Wv, voi
   T* G = reinterpret_cast<T*>(ws_g);
   T* G_lo = GS == 2 ? G + lo_offset(R * Qg) : nullptr;
 
-  cudaError_t e = window_rows<T, T, true>(static_cast<const T*>(gv), 1, G, G_lo, R, L, Qg, K,
-                                          stride, stream);
+  const long long N = R / L;
+  cudaError_t e = window_pass<T, T>(static_cast<const T*>(gv), 1, G, G_lo, N, L, Qg, K, stride,
+                                    true, chunk_g, stream);
   if (e != cudaSuccess) return (int)e;
   if ((e = launch_gw<T, GS, true>(x, G, G_lo, A, ws_w, ws_be, R, V, P, Cin, Cout, splits_w,
                                   stream)) != cudaSuccess)
@@ -72,8 +74,8 @@ int backward(const void* xv, const void* gv, const void* Av, const void* Wv, voi
                                   splits_a, stream)) != cudaSuccess)
     return (int)e;
   if (gx_ws != nullptr &&
-      (e = window_rows<float, T, true>(gx_ws, pg_n, gx, nullptr, R, L, (long long)V * Cin, 1, 1,
-                                       stream)) != cudaSuccess)
+      (e = window_pass<float, T>(gx_ws, pg_n, gx, nullptr, N, L, (long long)V * Cin, 1, 1, true,
+                                 chunk_x, stream)) != cudaSuccess)
     return (int)e;
   if ((e = reduce(ws_w, gW, splits_w, (long long)P * Cin * Cout, stream)) != cudaSuccess)
     return (int)e;
@@ -99,7 +101,7 @@ extern "C" int stgx_rt_fused_bwd(const void* x, const void* g, const void* A,
                                  float* ws_a, float* ws_be, float* ws_gx, int N, int L,
                                  int V, int P, int Cin, int Cout, int K,
                                  int stride, int splits_w, int splits_a, int dtype,
-                                 void* stream) {
+                                 int chunk_g, int chunk_x, void* stream) {
   const long long R = (long long)N * L;
   if (N <= 0 || L <= 0 || R > 2147483647LL || V < 1 || V > stgx::kMaxV ||
       P < 1 || P > stgx::kMaxP || Cin < 1 || Cout < 1 || K < 1 ||
@@ -109,10 +111,10 @@ extern "C" int stgx_rt_fused_bwd(const void* x, const void* g, const void* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return backward<float>(x, g, A, W, gx, gA, gW, gbe, ws_g, ws_w, ws_a, ws_be, ws_gx, R, V,
-                           P, Cin, Cout, L, K, stride, splits_w, splits_a, s);
+                           P, Cin, Cout, L, K, stride, splits_w, splits_a, chunk_g, chunk_x, s);
   if (dtype == 1)
     return backward<__nv_bfloat16>(x, g, A, W, gx, gA, gW, gbe, ws_g, ws_w, ws_a, ws_be,
                                    ws_gx, R, V, P, Cin, Cout, L, K, stride, splits_w,
-                                   splits_a, s);
+                                   splits_a, chunk_g, chunk_x, s);
   return (int)cudaErrorInvalidValue;
 }

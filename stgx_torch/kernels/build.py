@@ -115,18 +115,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.stgx_gcn_core.argtypes = [p, p, p, p, ll, i, i, i, i, i, p]
     lib.stgx_gcn_core.restype = i
-    lib.stgx_window_sum.argtypes = [p, p, ll, i, ll, i, i, i, i, p]
+    lib.stgx_window_sum.argtypes = [p, p, ll, i, ll, i, i, i, i, i, p]
     lib.stgx_window_sum.restype = i
-    lib.stgx_rt_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.stgx_rt_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused.restype = i
     lib.stgx_gcn_grads.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i,
                                    i, p]
     lib.stgx_gcn_grads.restype = i
     lib.stgx_rt_fused_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i,
-                                      i, i, i, i, i, i, i, i, i, p]
+                                      i, i, i, i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused_bwd.restype = i
     lib.stgx_temporal_shift.argtypes = [p, p, p, ll, i, i, i, i, i, i, p]
     lib.stgx_temporal_shift.restype = i
+    lib.stgx_temporal_shift_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+    lib.stgx_temporal_shift_bwd.restype = i
     lib.stgx_error_string.argtypes = [i]
     lib.stgx_error_string.restype = ctypes.c_char_p
     return lib

@@ -120,6 +120,7 @@ class RtLayer(nn.Module):
 class RtStgcn(nn.Module):
     """Per-frame segmentation RT-ST-GCN: ``(N, L, V, C)`` → ``(N, L, classes)``.
 
+    ``remat=True`` (per-layer rematerialisation) is not ported yet.
     Parameters are drawn from ``generator`` (a fresh one seeded 0 if None)
     on the CPU and the model is moved to ``device`` (``cuda`` if None).
     """
@@ -132,9 +133,13 @@ class RtStgcn(nn.Module):
                  stride: Sequence[int] = (1, 1, 1, 2, 1, 1, 2, 1, 1),
                  residual: Sequence[int] = (1,) * 9,
                  dropout: Sequence[float] = (0.0,) * 9,
-                 importance: bool = True,
+                 importance: bool = True, remat: bool = False,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "RT-ST-GCN remat is not ported to stgx_torch yet; see the module "
+                "queue in ROADMAP.md")
         device = default_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)

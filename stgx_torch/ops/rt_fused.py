@@ -49,7 +49,7 @@ from stgx_torch.ops.gcn_core import core_tile, gcn_core_plain
 from stgx_torch.ops.gcn_grads import gcn_grads_plain, gcn_grads_splits
 from stgx_torch.ops.graph_conv import partitioned_gcn
 from stgx_torch.ops.temporal import causal_accumulate
-from stgx_torch.ops.window_sum import window_sum_plain
+from stgx_torch.ops.window_sum import window_plan, window_sum_plain
 
 __all__ = [
     "rt_fused_gcn_acc",
@@ -119,7 +119,7 @@ def _fwd(x, A, W, beff, gamma: int, stride: int):
     rc = kernels.load().stgx_rt_fused(
         x.data_ptr(), A.data_ptr(), W.data_ptr(), beff.data_ptr(), y.data_ptr(), z.data_ptr(),
         n, l, v, p, cin, cout, taps, stride, code | core_tile(n * l, cout) << 8,
-        kernels.stream_handle(),
+        window_plan(stride), kernels.stream_handle(),
     )
     kernels.check(rc, "rt_fused")
     rt_fused_core.launches += 1
@@ -192,7 +192,7 @@ def rt_fused_bwd(x, g, A, W, gamma: int, stride: int, need_gx: bool = True):
         gbe.data_ptr(), ws_g.data_ptr(), ws_w.data_ptr(), ws_a.data_ptr(),
         ws_be.data_ptr(), ws_gx.data_ptr() if ws_gx is not None else None,
         n, l, v, p, cin, cout, taps, stride, splits_w, splits_a, code,
-        kernels.stream_handle(),
+        window_plan(stride), window_plan(1), kernels.stream_handle(),
     )
     kernels.check(rc, "rt_fused_bwd")
     rt_fused_bwd.launches += 1

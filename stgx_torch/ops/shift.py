@@ -25,11 +25,14 @@ version's bits.
 
 Gradient: :func:`temporal_shift` is a ``torch.autograd.Function``, the
 port of the JAX ``custom_vjp`` (``_ts_fwd``/``_ts_bwd``), whose backward is
-the VJP of the banded form. The JAX package has no backward kernel, so the
-backward here is PyTorch ops on the card as on the CPU, written in closed
-form rather than through the 18-tap band: ``gx`` is the transposed two-tap
-scatter, ``g_shift[c] = Σ_{n,t,v} g·(x[t·s+f+1] − x[t·s+f])``, zero where the
-clip is active (half at exactly ±K, as JAX's clip gives).
+the VJP of the banded form in closed form rather than through the 18-tap
+band: ``gx`` is the transposed two-tap scatter, ``g_shift[c] = Σ_{n,t,v}
+g·(x[t·s+f+1] − x[t·s+f])``, zero where the clip is active (half at exactly
+±K, as JAX's clip gives). The JAX VJP is XLA, not Pallas; here a CUDA tensor
+runs it in the hand-written kernel of :func:`temporal_shift_bwd`
+(``csrc/temporal_shift.cu``), the forward's layout with ``g_shift`` summed
+as per-block partials added in a fixed order; its plain version is
+:func:`temporal_shift_vjp_plain`.
 """
 
 from __future__ import annotations
@@ -42,13 +45,18 @@ from stgx_torch import kernels
 __all__ = [
     "MAX_SHIFT",
     "shift_band_weights",
+    "shift_bwd_tile",
     "temporal_shift",
+    "temporal_shift_bwd",
     "temporal_shift_plain",
+    "temporal_shift_vjp_plain",
     "spatial_shift",
     "spatial_shift_index",
 ]
 
 MAX_SHIFT = 8  # the band's half-width K; shifts clip to [-K, K]
+SLAB_ROWS = 160  # frames a block of csrc/temporal_shift.cu stages (kSlabRows)
+SHIFT_SPAN = 256  # partials of g_shift the first reduction pass adds a block (kSpan)
 
 
 def shift_band_weights(shift, max_shift: int = MAX_SHIFT):
@@ -112,9 +120,10 @@ def _shift(x, shift, stride: int, max_shift: int):
     return y
 
 
-def _shift_vjp(x, shift, g, stride: int, max_shift: int):
-    """``(gx, g_shift)`` of the shift in closed form, summed in fp32 (fp64
-    for fp64 input) and returned in the types of x and shift."""
+def temporal_shift_vjp_plain(x, shift, g, stride: int = 1, max_shift: int = MAX_SHIFT):
+    """The plain PyTorch version of the backward: ``(gx, g_shift)`` of the
+    shift in closed form, summed in fp32 (fp64 for fp64 input) and returned
+    in the types of x and shift."""
     acc = torch.promote_types(x.dtype, torch.float32)
     n, l, v, c = x.shape
     out_l = g.shape[1]
@@ -143,9 +152,48 @@ def _shift_vjp(x, shift, g, stride: int, max_shift: int):
     return gx.to(x.dtype), gsh.to(shift.dtype)
 
 
+def shift_bwd_tile(l: int, stride: int, max_shift: int = MAX_SHIFT) -> int:
+    """Output frames a block of the backward kernel takes: as many as the
+    staged rows of g on the input grid (``tile·s + 2K + 1``) and of x
+    (``(tile − 1)·s + 2K + 2``) allow, at most the whole sequence."""
+    tile = min((SLAB_ROWS - 2 * max_shift - 1) // stride, -(-l // stride))
+    if tile < 1:
+        raise ValueError(f"temporal_shift: no kernel for max_shift {max_shift} at stride "
+                         f"{stride} ({SLAB_ROWS} staged frames a block)")
+    return tile
+
+
+def temporal_shift_bwd(x, shift, g, stride: int = 1, max_shift: int = MAX_SHIFT):
+    """``(gx, g_shift)`` of the shift for the upstream gradient ``g``: the
+    plain version for a CPU tensor, the kernel for a CUDA tensor (shift in
+    x's type). ``temporal_shift_bwd.launches`` counts the launches."""
+    if x.device.type == "cpu":
+        return temporal_shift_vjp_plain(x, shift, g, stride, max_shift)
+    shift, g = shift.contiguous(), g.contiguous()
+    code = kernels.validate("temporal_shift_bwd", x, shift, g)
+    n, l, v, c = x.shape
+    gx, gsh = torch.empty_like(x), torch.empty_like(shift)
+    if x.numel() == 0:
+        return gx.zero_(), gsh.zero_()
+    tile = shift_bwd_tile(l, stride, max_shift)
+    partials = n * v * -(-g.shape[1] // tile)
+    ws = torch.empty((partials + -(-partials // SHIFT_SPAN)) * c, dtype=torch.float32,
+                     device=x.device)
+    rc = kernels.load().stgx_temporal_shift_bwd(
+        x.data_ptr(), shift.data_ptr(), g.data_ptr(), gx.data_ptr(), gsh.data_ptr(),
+        ws.data_ptr(), n, l, v, c, stride, max_shift, tile, code, kernels.stream_handle(),
+    )
+    kernels.check(rc, "temporal_shift_bwd")
+    temporal_shift_bwd.launches += 1
+    return gx, gsh
+
+
+temporal_shift_bwd.launches = 0
+
+
 class _TemporalShift(torch.autograd.Function):
-    """``custom_vjp`` of the shift: the kernel forward (the plain version on
-    the CPU) and the banded form's VJP, in closed form."""
+    """``custom_vjp`` of the shift: the forward kernel and the backward
+    kernel (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, shift, stride, max_shift):
@@ -156,7 +204,7 @@ class _TemporalShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, shift = ctx.saved_tensors
-        gx, gs = _shift_vjp(x, shift, g, *ctx.args)
+        gx, gs = temporal_shift_bwd(x, shift, g, *ctx.args)
         return gx, gs, None, None
 
 
@@ -166,7 +214,8 @@ def temporal_shift(x, shift, stride: int = 1, max_shift: int = MAX_SHIFT):
 
     The shift is cast to x's type first (autograd carries its gradient back
     through the cast). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel. ``temporal_shift.launches`` counts the launches.
+    launches the kernel, and its backward :func:`temporal_shift_bwd`'s
+    kernel. ``temporal_shift.launches`` counts the forward's launches.
     """
     if x.dim() != 4 or shift.shape != (x.shape[3],):
         raise ValueError(f"temporal_shift: x (N, L, V, C) and shift (C,), got "

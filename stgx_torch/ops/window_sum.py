@@ -6,14 +6,19 @@ Replaces the TPU kernel ``stgx/ops/pallas_acc.py:_kernel`` (launched by
 with ``reverse=True`` it is the anti-causal sum ``Σ_j x[t + j·s]``, the
 forward's vector-Jacobian product, with frames past the end zero.
 
-Bound on the H100: bytes. ``K ≤ 9`` adds per element against one read and
-one write of the ``(N, L, V·C)`` activation. The design answer, in the
-source's note: threads run over the contiguous ``V·C`` axis so every load
-coalesces, and a row's re-reads by later frames come from cache. Unlike the
-TPU kernel there is no limit on ``(K − 1)·s``.
+Bound on the H100: bytes at Γ = 9 (``K ≤ 9`` adds per element against one
+read and one write of the ``(N, L, V·C)`` activation); at Γ = 69 the adds
+(69 an output, 34 at s = 2) come close to the bytes in fp32 and bind in
+bf16. The design answer, in the source's note (``csrc/window.cuh``): a
+block stages a chunk of frames and its halo for a 32-column tile in shared
+memory (``cp.async``), each frame read from device memory once; a thread
+keeps 8 accumulators and walks its frames newest first, adding each frame to
+every output whose window holds it. :func:`window_plan` picks the chunk on
+the host. Unlike the TPU kernel there is no limit on ``(K − 1)·s``.
 
-Numerics: the taps sum in fp32 in the order ``j = 0, 1, …`` and the result
-is cast once to x's type.
+Numerics: each output sums its taps in fp32 in the order ``j = 0, 1, …``,
+as the plain version does, and is cast once to x's type: the kernel gives
+the plain version's bits in fp32 and in bf16.
 
 Gradient: :func:`window_sum` is a ``torch.autograd.Function``, the port of
 the JAX ``custom_vjp`` (``_acc_fwd``/``_acc_bwd``): its backward is the same
@@ -23,11 +28,42 @@ identity as its gradient.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from stgx_torch import kernels
 
-__all__ = ["window_sum", "window_sum_plain"]
+__all__ = ["window_sum", "window_sum_plain", "window_plan", "window_smem", "WINDOW_COLS",
+           "WINDOW_R"]
+
+WINDOW_COLS = 32  # columns a block takes (csrc/window.cuh: kWinCols)
+WINDOW_R = 8  # outputs a thread sums at once (kWinR)
+WINDOW_THREAD_ROWS = 32  # groups of WINDOW_R outputs a block sums at once (vector route)
+SMEM_BLOCK = 232448  # shared memory a block may take (csrc/common.cuh: kMaxSmem)
+
+
+def window_smem(chunk: int, halo: int, itemsize: int = 4) -> int:
+    """Bytes of shared memory a block takes to stage a chunk and its halo in
+    the input's type, ``WINDOW_COLS`` columns a row, bf16 rows padded by 8
+    bytes (csrc/window.cuh: window_smem); above ``SMEM_BLOCK`` the kernel
+    reads device memory instead."""
+    return (chunk + halo) * (WINDOW_COLS * itemsize + (8 if itemsize == 2 else 0))
+
+
+def window_plan(stride: int) -> int:
+    """Outputs a block of the window pass takes: one round of its
+    ``WINDOW_THREAD_ROWS`` thread rows, each a group of ``WINDOW_R`` outputs
+    of one residue class, 256 at s = 1 and 2.
+
+    On the H100 (``PERF.md``) this short chunk ran fastest at Γ = 9 and at
+    Γ = 69 alike: at Γ = 69 its halo of 68 frames is read twice, once more
+    than a chunk of 512 or 1024 would read it, but the second read comes
+    from L2, and the small chunk keeps four blocks on an SM, whose staging
+    overlaps the others' adds; 16 outputs a thread took 128 registers and
+    two blocks an SM and lost to 8.
+    """
+    return WINDOW_THREAD_ROWS * WINDOW_R * stride // math.gcd(WINDOW_THREAD_ROWS, stride)
 
 
 def window_sum_plain(x, kernel_size: int, stride: int, reverse: bool = False):
@@ -62,7 +98,7 @@ def _window(x, k: int, stride: int, reverse: bool):
         return y
     rc = kernels.load().stgx_window_sum(
         x.data_ptr(), y.data_ptr(), n, l, v * c, k, stride, int(reverse), code,
-        kernels.stream_handle(),
+        window_plan(stride), kernels.stream_handle(),
     )
     kernels.check(rc, "window_sum")
     window_sum.launches += 1
