@@ -52,6 +52,26 @@ all-plain run in float64, a falling CE); and ``train_throughput`` for
 Shift-GCN in fp32 and bf16. Peak device memory of the offline forward and
 of a train step is printed.
 
+CoST-GCN follows, at its PKU-MMD width (``configs/pku-mmd/ln/costgcn.json``,
+Gamma = 9, and ``costgcn_69.json``, Gamma = 69 with dilation up to 4;
+LayerNorm; random weights from the config's seed). Its graph conv runs
+gcn_core and gcn_grads, its temporal conv one matrix product a tap (cuDNN
+for bf16 without dilation, ``conv_route``), held against cuDNN's
+``F.conv2d`` at its 9 layers' shapes and timed beside it. The batch form of
+N_BATCH x L_BATCH frames (fp32 and bf16 at Gamma = 9, fp32 at 69: gcn_core
+once a layer, logits against the all-plain run, in bf16 within twice the
+bf16 all-plain run's distance from fp32, forward ms, peak memory and the
+temporal convs' share of the device time); the serving cell through
+``stgx_torch.bench.serving --model co-st-gcn`` (B = 1 and 64 at Gamma = 9,
+B = 1 at 69; gcn_core once a layer a step), the streamed logits against the
+batch form's, and the cell at B_PEAK_CO streams (peak memory, step time,
+FIFO state); ``check_stream_drift`` of the bf16 cell against the fp32 one
+for CoST-GCN9 and RT-ST-GCN9, held to the JAX test's bounds; the training
+path (one first step at N_TRAIN x L_TRAIN frames at each Gamma, its
+launches, peak memory and gradients against the all-plain run in float64,
+then two epochs with a falling CE at Gamma = 9); and ``train_throughput
+--model co-st-gcn`` in fp32 and bf16 with the temporal convs' share.
+
 Then the entry points a user runs, at full width: ``python -m
 stgx_torch.cli`` driven in this process (``stgx_torch.cli.main``, so that
 the launch counters see it) on synthetic PKU-MMD trials. RT-ST-GCN₉ at its
@@ -61,9 +81,11 @@ run's ``final`` (parameters and Adam moments within ``TOL_RESUME``), tests
 ``final`` (the last epoch's top1_val, F1@k, edit and confusion counts
 again) and benchmarks (its latency line), then trains one epoch under
 ``arch.rt_fused``; Gamma = 69 trains one epoch and tests; Shift-GCN trains
-one epoch through the window kind, tests and benchmarks. ``arch.remat``
-trains one RT₉ step (dropout drawn from an explicit generator) and one
-Shift-GCN chunk step with gradients against the stored steps' and peak
+one epoch through the window kind, tests and benchmarks; CoST-GCN9 trains
+two epochs, resumes, tests and benchmarks as RT-ST-GCN9 does, and CoST-GCN
+at Gamma = 69 trains one epoch and tests. ``arch.remat`` trains one RT₉
+step and one CoST-GCN9 step (dropout drawn from an explicit generator) and
+one Shift-GCN chunk step with gradients against the stored steps' and peak
 memory beside theirs. Last, the headline's functions
 (``stgx_torch.bench.headline``) at ``HEADLINE_FRAMES`` frames: the CUDA
 graph's logits against graph-free streaming, the result line, and the peak
@@ -112,6 +134,16 @@ CLI_SG_TRIALS, CLI_SG_LEN = (2, 1), (200, 400)
 REMAT_DROPOUT = 0.1  # dropout of the remat check's RT layers
 HEADLINE_FRAMES = 4096  # frames a repeat of the headline's graph replay here
 B_PEAK = 4096  # streams of the serving cell whose peak memory is read
+
+CO_CONFIG = "configs/pku-mmd/ln/costgcn.json"  # CoST-GCN9, LayerNorm
+CO_CONFIG_69 = "configs/pku-mmd/ln/costgcn_69.json"  # Gamma = 69, dilation to 4
+CO_STREAM = 320  # streamed == batch: frames, past the deepest FIFO (273 at Gamma = 69)
+B_PEAK_CO = {9: 1024, 69: 64}  # streams of the CoST-GCN serving cell, peak memory
+CO_PEAK_FRAMES = 32  # frames streamed at B_PEAK_CO
+DRIFT_FRAMES, DRIFT_B = 256, 4  # check_stream_drift: frames x streams
+# CoST-GCN training: synthetic trials of CO_TRAIN_LEN frames in one L_TRAIN
+# bucket, N_TRAIN stacked in the first step, CO_TRAIN_BS an Adam step after
+CO_TRAIN_LEN, CO_TRAIN_BS, CO_EPOCHS = (768, 1024), 4, 2
 SLEEP_CYCLES = 60_000_000  # device_ms: ~30 ms of a sleeping kernel, ahead of the host
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on the
@@ -172,6 +204,18 @@ TOL_GRAD, TOL_FORMS, GRAD_VS_PLAIN = 5e-4, 1e-5, 2.0
 # catch a kernel. The gradients that are zero in exact arithmetic (biases
 # feeding a batch norm) are held to TOL_GRAD of the model's largest.
 TOL_GRAD_SG = 1.5e-2
+# CoST-GCN's first-step gradients against float64, by Gamma: GRAD_VS_PLAIN
+# times the fp32 all-plain run's worst error, plus TOL_FORMS. On the card
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md, run AV2) the all-plain run is
+# 5.127e-4 from float64 at Gamma = 9 (layers.0.gcn.kernel) and 8.463e-4 at
+# Gamma = 69 (layers.8.norm.bias), the kernel run 5.315e-4 and 3.947e-4; the
+# run's own bound (GRAD_VS_PLAIN x its all-plain error + TOL_FORMS) is
+# checked too. CoST-GCN gets no per-parameter check: two all-plain runs that
+# differ only in the graph conv's order of sums (x.A first, or W first:
+# gcn_core_channels_first) are each several times further than the other
+# from float64 on single parameters, as the kernel run is; the training
+# phase prints how many parameters each run would fail such a check on.
+TOL_GRAD_CO = {9: 1.04e-3, 69: 1.70e-3}
 # a CLI run resumed from epoch-0 against the unbroken run (parameters and
 # Adam moments, relative to max(1, max|ref|)); the CUDA graph's logits
 # against graph-free streaming (cuBLAS may pick another algorithm under
@@ -1330,6 +1374,408 @@ def shift_throughput_phase():
             for dtype in ("float32", "bfloat16")]
 
 
+# ---------------------------------------------------------------- CoST-GCN
+
+
+def conv_share(prof):
+    """(device ms, ms of the temporal convs, forward and backward) of a
+    ``profiled`` trace: every CUDA kernel's own time, and the device time
+    under the ``temporal_conv`` ranges and the backward nodes of its two
+    routes (the taps' Function and cuDNN's convolution)."""
+    from torch.autograd import DeviceType
+
+    avg = [e for e in prof.key_averages()]
+    total = sum(e.self_device_time_total for e in avg
+                if e.device_type == DeviceType.CUDA and e.key != "temporal_conv")
+    # a backward node shows as its engine call and as itself, one inside the
+    # other: count the outer one only
+    backward = [e for e in avg if e.device_type == DeviceType.CPU
+                and e.key.endswith(("_TapConvBackward", "ConvolutionBackward0"))]
+    outer = [e for e in backward if e.key.startswith("autograd::engine::evaluate_function")]
+    conv = sum(e.device_time_total for e in avg
+               if e.device_type == DeviceType.CPU and e.key == "temporal_conv")
+    conv += sum(e.device_time_total for e in (outer or backward))
+    return total / 1e3, conv / 1e3
+
+
+def profiled(fn):
+    """A torch.profiler trace of one call of ``fn`` after a warm call, each
+    CoST-GCN temporal conv inside a ``temporal_conv`` range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import stgx_torch.models.costgcn as costgcn
+
+    real = costgcn.temporal_conv
+
+    def ranged(*args, **kwargs):
+        with record_function("temporal_conv"):
+            return real(*args, **kwargs)
+
+    with mock.patch.object(costgcn, "temporal_conv", ranged):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return prof
+
+
+def temporal_conv_phase():
+    """CoST-GCN's temporal conv at its 9 layers' shapes (N_BATCH x L_BATCH
+    frames), Gamma = 9 and 69, fp32 and bf16: the port's route
+    (``conv_route``: cuDNN or the taps) against cuDNN's ``F.conv2d`` on the
+    same inputs, forward times summed over the layers beside the bound.
+    cuDNN's bf16 convolution at Gamma = 69 takes seconds a call and is not
+    timed (PERF.md)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stgx_torch.config import build_model
+    from stgx_torch.ops.temporal import conv_route, temporal_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def cudnn(x, W, d):
+        xp = F.pad(x, (0, 0, 0, 0, (W.shape[0] - 1) * d, 0))
+        return F.conv2d(xp.permute(0, 3, 1, 2), W.permute(2, 1, 0)[..., None],
+                        dilation=(d, 1)).permute(0, 2, 3, 1)
+
+    for gamma, config in ((9, CO_CONFIG), (69, CO_CONFIG_69)):
+        model = build_model(load_cfg(config), NUM_CLASSES, device="cpu")
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            ms = lib_ms = bound_ms = 0.0
+            routes, timed = [], dt == torch.float32 or gamma <= 17
+            for cout, d in zip(model.out_ch, model.dilation):
+                x = torch.randn(N_BATCH, L_BATCH, 25, cout, generator=gen, device="cuda").to(dt)
+                W = (torch.randn(gamma, cout, cout, generator=gen, device="cuda")
+                     * (cout * gamma) ** -0.5).to(dt)
+                routes.append(conv_route("cuda", dt, gamma, d))
+                y = temporal_conv(x, W, dilation=d, padding="causal")
+                check(bool(torch.isfinite(y.float()).all()), f"temporal conv {x.shape}: non-finite")
+                ms += time_ms(lambda: temporal_conv(x, W, dilation=d, padding="causal"),
+                              reps=5, warm=1)
+                flops = 2 * x.shape[0] * x.shape[1] * 25 * gamma * cout * cout
+                bound_ms += bound(2 * x.numel() * x.element_size() + W.numel() * W.element_size(),
+                                  flops, str(dt)[6:])[0]
+                if timed:
+                    err, rel = rel_err(y, cudnn(x, W, d))
+                    check(rel <= tol, f"temporal conv Gamma={gamma} {str(dt)[6:]} C={cout} d={d}: "
+                          f"the port's route off cuDNN's by {rel:.3e}")
+                    lib_ms += time_ms(lambda: cudnn(x, W, d), reps=5, warm=1)
+            lib = f"{lib_ms:.3f} ms" if timed else "not timed (seconds a call)"
+            print(f"temporal conv over the 9 layers, Gamma={gamma}, {str(dt)[6:]}, N={N_BATCH} x "
+                  f"L={L_BATCH}: the port {ms:.3f} ms (routes {','.join(routes)}), cuDNN "
+                  f"F.conv2d {lib}, bound {bound_ms:.3f} ms", flush=True)
+
+
+def costgcn_forward_phase():
+    """The CoST-GCN batch form, N_BATCH x L_BATCH, with the counters at zero:
+    Gamma = 9 in fp32 and bf16, Gamma = 69 in fp32. Each forward launches
+    gcn_core once a layer; logits against the all-plain run in fp32 (to
+    TOL_MODEL) and, in bf16, against the fp32 all-plain run, held to
+    GRAD_VS_PLAIN times the bf16 all-plain run's own distance from it (nine
+    layers of bf16 roundings, where the kernel rounds the aggregate as the
+    TPU kernel did and the plain version does not); forward ms, peak device
+    memory and the temporal convs' share of the device time. Returns the
+    launch counts."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from stgx_torch.config import build_model
+
+    none = {k: 0 for k in counts()}
+    parts = {}
+    for gamma, config in ((9, CO_CONFIG), (69, CO_CONFIG_69)):
+        model = build_model(load_cfg(config), NUM_CLASSES)
+        n = len(model.layers)
+        check(model.kernel == gamma, f"{config}: Gamma {model.kernel}")
+        x32 = torch.tensor(np.random.default_rng(SEED + 7).normal(
+            size=(N_BATCH, L_BATCH, model.num_joints, model.in_feat)),
+            dtype=torch.float32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16)[: 2 if gamma == 9 else 1]:
+            name = f"CoST-GCN Gamma={gamma} batch form {str(dt)[6:]}"
+            m = model if dt == torch.float32 else copy.deepcopy(model).to(dt)
+            x = x32.to(dt)
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                y = m(x)
+                torch.cuda.synchronize()
+                parts[name] = counts()
+                peak = torch.cuda.max_memory_allocated()
+                check(parts[name] == {**none, "gcn_core": n},
+                      f"{name} launched {parts[name]}, want {n} gcn_core")
+                before = counts()
+                with plain_ops():
+                    y_plain = m(x)
+                check(counts() == before, "the plain reference run launched a kernel")
+                check(y.shape == (N_BATCH, L_BATCH, NUM_CLASSES), f"{name}: shape {y.shape}")
+                check(bool(torch.isfinite(y.float()).all()), f"{name}: non-finite logits")
+                err, rel = rel_err(y, y_plain)
+                ms = time_ms(lambda: m(x), reps=5, warm=1)
+                total, conv = conv_share(profiled(lambda: m(x)))
+            if dt == torch.float32:
+                y_plain32, tol, against = y_plain, TOL_MODEL, ""
+            else:  # both bf16 runs against the fp32 all-plain one
+                rel_plain = rel_err(y_plain, y_plain32)[1]
+                err, rel = rel_err(y, y_plain32)
+                tol = GRAD_VS_PLAIN * rel_plain
+                against = (f" (the bf16 all-plain run {rel_plain:.3e} from it, the kernel run "
+                           f"{rel_err(y, y_plain)[1]:.3e} from the bf16 all-plain run)")
+            print(f"{name} vs fp32 all-plain: max abs err {err:.3e} (relative {rel:.3e}, "
+                  f"tolerance {tol:.3g}){against}; forward N={N_BATCH} x L={L_BATCH} {ms:.3f} "
+                  f"ms ({N_BATCH * L_BATCH / ms * 1e3:.0f} frames/s); device {total:.3f} ms, of "
+                  f"it the temporal convs {conv:.3f} ms ({100 * conv / total:.1f} %); "
+                  f"peak device memory {peak / 2**20:.1f} MiB", flush=True)
+            check(rel <= tol, f"{name}: relative error {rel:.3e}")
+    return parts
+
+
+def costgcn_streaming_phase():
+    """The CoST-GCN serving cell through ``serving.py --model co-st-gcn``,
+    with the counters at zero: B in {1, B_STREAM} x L_STREAM frames at
+    Gamma = 9 and B = 1 x L_STREAM at Gamma = 69, gcn_core once a layer a
+    step; the streamed logits against the batch form's (CO_STREAM frames,
+    past every FIFO's depth); peak device memory of the cell at B_PEAK_CO.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.bench import serving
+    from stgx_torch.config import build_model
+    from stgx_torch.models.costgcn import init_stream_state, stream_sequence
+
+    none = {k: 0 for k in counts()}
+    parts = {}
+    for gamma, config, batches in ((9, CO_CONFIG, [1, B_STREAM]), (69, CO_CONFIG_69, [1])):
+        reset_counts()
+        records = serving.main(["--model", "co-st-gcn", "--config", config, "--batches",
+                                ",".join(map(str, batches)), "--frames", str(L_STREAM)])
+        name = f"CoST-GCN Gamma={gamma} serving"
+        parts[name] = counts()
+        model = build_model(load_cfg(config), NUM_CLASSES)
+        n, steps = len(model.layers), len(batches) * (serving.WARMUP_STEPS + L_STREAM)
+        check(parts[name] == {**none, "gcn_core": n * steps},
+              f"{name} launched {parts[name]}, want {n * steps} gcn_core")
+        for rec in records:
+            print(f"{name} B={rec['streams']}: step p50 {rec['step_ms_p50']:.4f} ms, "
+                  f"p99 {rec['step_ms_p99']:.4f} ms", flush=True)
+        # where a step of the B_STREAM-stream cell spends its device time
+        reset_counts()
+        prof = serving.profile_steps(model, B_STREAM)
+        parts[name + " profile"] = counts()
+        print(f"{name} B={B_STREAM} profiled: step {prof['step_ms']:.4f} ms, device busy "
+              f"{100 * prof['device_busy_share']:.1f} %, {prof['launches_per_step']:.0f} "
+              f"launches a step; most device time: " + "; ".join(
+                  f"{k['name'][:60]} {k['ms_per_step']:.4f} ms x{k['per_step']:.0f}"
+                  for k in prof["top_kernels"]), flush=True)
+
+        x = torch.tensor(np.random.default_rng(SEED + 8).normal(
+            size=(2, CO_STREAM, model.num_joints, model.in_feat)),
+            dtype=torch.float32, device="cuda")
+        reset_counts()
+        with torch.inference_mode():
+            y_batch = model(x)
+            y_stream, _ = stream_sequence(model, x)
+        torch.cuda.synchronize()
+        parts[name + " == batch"] = counts()
+        check(bool(torch.isfinite(y_stream).all()), f"{name}: non-finite streamed logits")
+        err, rel = rel_err(y_stream, y_batch)
+        print(f"CoST-GCN Gamma={gamma} streamed == batch form, 2 x {CO_STREAM} frames: max "
+              f"abs err {err:.3e} (relative {rel:.3e}, tolerance {TOL_MODEL:g})", flush=True)
+        check(rel <= TOL_MODEL, f"CoST-GCN Gamma={gamma}: stream != batch, {rel:.3e}")
+
+        b = B_PEAK_CO[gamma]
+        del y_batch, y_stream
+        state = sum(t.numel() * t.element_size() for layer in init_stream_state(model)
+                    for t in layer.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        step_ms, _ = serving.measure_step_latency(model, b, frames=CO_PEAK_FRAMES, warmup=2)
+        torch.cuda.synchronize()
+        parts[name + " peak"] = counts()
+        peak = torch.cuda.max_memory_allocated()
+        # the shift FIFOs are written anew every frame: the state read and written
+        copy_ms = 2 * b * state / PEAK_BYTES_S * 1e3
+        print(f"CoST-GCN Gamma={gamma} serving cell at B={b}: state {state / 1e6:.2f} MB a "
+              f"stream, {b * state / 2**20:.1f} MiB in all; peak device memory "
+              f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the model); step "
+              f"p50 {np.percentile(step_ms, 50):.4f} ms over {CO_PEAK_FRAMES} frames, of it "
+              f"the FIFOs' rewrite at least {copy_ms:.4f} ms (bytes)", flush=True)
+    return parts
+
+
+def drift_phase():
+    """check_stream_drift of the bf16 cell against the fp32 one, DRIFT_B
+    streams x DRIFT_FRAMES frames, CoST-GCN9 and RT-ST-GCN9 at their
+    canonical configs, held to tests/test_serving.py's bounds. Returns the
+    launch counts."""
+    import torch
+
+    from stgx_torch.bench import serving
+    from stgx_torch.config import build_model
+
+    parts = {}
+    for name, config in (("co-st-gcn", CO_CONFIG), ("rt-st-gcn", CONFIG)):
+        model = build_model(load_cfg(config), NUM_CLASSES)
+        reset_counts()
+        drift = serving.check_stream_drift(model, l=DRIFT_FRAMES, batch=DRIFT_B,
+                                           dtype=torch.bfloat16)
+        parts[f"drift {name}"] = counts()
+        print(f"drift {name} ({config}), bf16 cell vs fp32, B={DRIFT_B} x {DRIFT_FRAMES} "
+              f"frames: {json.dumps(drift)}", flush=True)
+        check(drift["top1_agreement"] > 0.8, f"drift {name}: top-1 agreement {drift}")
+        check(drift["max_rel_drift"] < 0.25, f"drift {name}: relative drift {drift}")
+        check(drift["max_abs_drift_second_half"]
+              < 5 * drift["max_abs_drift_first_half"] + 1e-3,
+              f"drift {name}: the drift grows along the stream {drift}")
+    return parts
+
+
+def gcn_core_channels_first(x, A, W):
+    """The graph-conv core's plain function with its sums in the other
+    order: channels mixed first (x·W_p), then joints (·A_p), in fp32."""
+    import torch
+
+    acc = torch.promote_types(x.dtype, torch.float32)
+    t = torch.einsum("rvc,pcd->rpvd", x.to(acc), W.to(x.dtype).to(acc))
+    return torch.einsum("rpvd,pvw->rwd", t, A.to(x.dtype).to(acc)).to(x.dtype)
+
+
+def costgcn_training_phase(data_dir):
+    """The CoST-GCN training path at full width: synthetic PKU-MMD trials of
+    CO_TRAIN_LEN frames in one L_TRAIN bucket (their length masks),
+    N_TRAIN a step. At Gamma = 9 and 69 one step's launches (gcn_core for y
+    and gx, gcn_grads once a layer), peak device memory and first-step
+    gradients against the all-plain run in float64; at Gamma = 9 then
+    CO_EPOCHS epochs with a falling CE. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import stgx_torch.ops.graph_conv as gconv
+    from stgx_torch.config import build_model
+    from stgx_torch.data import SkeletonDirDataset, class_distribution
+    from stgx_torch.data.synth import generate
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.parallel.segments import pad_to_bucket
+    from stgx_torch.utils import LOSS
+
+    generate(data_dir, skeleton="pku-mmd", num_classes=NUM_CLASSES, in_feat=3,
+             num_train=N_TRAIN, num_val=0, min_len=CO_TRAIN_LEN[0], max_len=CO_TRAIN_LEN[1],
+             seed=SEED + 9)
+    ds = SkeletonDirDataset(os.path.join(data_dir, "train", "features"),
+                            os.path.join(data_dir, "train", "labels"))
+    dist = class_distribution(ds, NUM_CLASSES)
+    trials = [pad_to_bucket(*ds[i], L_TRAIN) for i in range(N_TRAIN)]
+    none = {k: 0 for k in counts()}
+    parts = {}
+    for gamma, config in ((9, CO_CONFIG), (69, CO_CONFIG_69)):
+        name = f"CoST-GCN Gamma={gamma} train"
+        cfg = load_cfg(config)
+        trainer = Trainer(model=build_model(cfg, NUM_CLASSES), kind="frame",
+                          loss=LOSS["co-st-gcn"](dist),
+                          opt=OptimizerConfig(learning_rate=cfg["optimizer"]["learning_rate"],
+                                              batch_size=CO_TRAIN_BS, seed=SEED),
+                          bucket=L_TRAIN, trial_batch=N_TRAIN)
+        n = len(trainer.model.layers)
+        batch = trainer.stack_trials(*zip(*trials))
+        before = counts()
+        t0 = time.perf_counter()
+        exact = float64_grads(trainer, batch)
+        t64 = time.perf_counter() - t0
+        with plain_ops():
+            ref = first_step_grads(trainer, batch)
+            with mock.patch.object(gconv, "gcn_core", gcn_core_channels_first):
+                ref_c = first_step_grads(trainer, batch)
+        check(counts() == before, "the all-plain training steps launched a kernel")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        got = first_step_grads(trainer, batch)
+        torch.cuda.synchronize()
+        parts[name] = counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {**none, "gcn_core": 2 * n, "gcn_grads": n}
+        print(f"{name} step, {N_TRAIN} x {L_TRAIN} frames: launches "
+              f"{json.dumps(parts[name])}; peak device memory {peak / 2**20:.1f} MiB; the "
+              f"float64 witness took {t64:.1f} s", flush=True)
+        check(parts[name] == want, f"{name} step launched {parts[name]}, want {want}")
+        check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+              f"{name}: non-finite gradients")
+        worst, plain32 = worst_grad_err(got, exact), worst_grad_err(ref, exact)
+        own = GRAD_VS_PLAIN * plain32[0] + TOL_FORMS
+        print(f"{name}: first-step gradients vs all-plain float64, worst relative error "
+              f"{worst[0]:.3e} ({worst[1]}, tolerance {TOL_GRAD_CO[gamma]:g}, and this run's "
+              f"{own:.3e}); the fp32 all-plain run's {plain32[0]:.3e} ({plain32[1]}); kernels "
+              f"vs fp32 all-plain {worst_grad_err(got, ref)[0]:.3e}", flush=True)
+        errs = sorted(((grad_err(got[k], exact[k]), grad_err(ref[k], exact[k]), k)
+                       for k in exact), reverse=True)
+        for e_k, e_p, k in errs[:5]:
+            print(f"  {k}: kernels {e_k:.3e}, fp32 all-plain {e_p:.3e} from float64",
+                  flush=True)
+        # why no per-parameter check: a second all-plain run, its graph conv
+        # summed in the other order, breaks one as often as the kernels do
+        over = {run: sorted(k for k in exact if grad_err(g[k], exact[k])
+                            > GRAD_VS_PLAIN * grad_err(ref[k], exact[k]) + TOL_FORMS)
+                for run, g in (("kernels", got), ("channels-first all-plain", ref_c))}
+        print(f"{name}: parameters further from float64 than {GRAD_VS_PLAIN:g}x the "
+              f"all-plain run + {TOL_FORMS:g}: " + "; ".join(
+                  f"{run} {len(ks)} {ks[:3]}" for run, ks in over.items())
+              + f"; the channels-first run's worst {worst_grad_err(ref_c, exact)[0]:.3e}",
+              flush=True)
+        check(worst[0] <= min(TOL_GRAD_CO[gamma], own),
+              f"{name}: gradient {worst[1]} off by {worst[0]:.3e}")
+        del exact, ref, ref_c, got
+        if gamma != 9:
+            continue
+        ce0 = trainer.evaluate(ds)["ce"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with step_launches() as steps:
+            ces = [trainer.train_epoch(ds, epoch)["ce"] for epoch in range(CO_EPOCHS)]
+        torch.cuda.synchronize()
+        parts[name + " epochs"] = counts()
+        ce1 = trainer.evaluate(ds)["ce"]
+        print(f"{name}: {CO_EPOCHS} epochs x {N_TRAIN} trials ({len(steps)} grad steps) in "
+              f"{time.perf_counter() - t0:.2f} s; epoch CE {np.round(ces, 4).tolist()}; eval "
+              f"CE {ce0:.4f} -> {ce1:.4f}", flush=True)
+        check_steps(name, steps, {"gcn_core": 2 * n, "gcn_grads": n})
+        check(np.isfinite(ces).all() and ce1 < ce0, f"{name}: CE did not fall")
+    return parts
+
+
+def costgcn_throughput_phase():
+    """``train_throughput --model co-st-gcn`` at N_TRAIN x L_TRAIN frames,
+    fp32 and bf16 (step p50, frames/s, MFU, HBM share, busy share, launches
+    a step), and the temporal convs' share of a step's device time."""
+    import numpy as np
+
+    from stgx_torch.bench import train_throughput
+    from stgx_torch.config import build_model
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.utils import LOSS
+
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        rec = train_throughput.main(["--model", "co-st-gcn", "--dtype", dtype, "--trials",
+                                     str(N_TRAIN), "--frames", str(L_TRAIN), "--profile"])
+        trainer = Trainer(model=build_model(load_cfg(CO_CONFIG), NUM_CLASSES), kind="frame",
+                          loss=LOSS["co-st-gcn"](np.ones(NUM_CLASSES, np.float32)),
+                          opt=OptimizerConfig(learning_rate=1e-4), compute_dtype=dtype)
+        total, conv = conv_share(profiled(train_throughput.make_step(trainer, N_TRAIN,
+                                                                     L_TRAIN)))
+        rec["conv_share"] = conv / total
+        records.append(rec)
+    return records
+
+
 # ------------------------------------------------------------ the CLI
 
 
@@ -1415,72 +1861,81 @@ def checkpoint_err(a_path, b_path):
     return max((rel_err(y, x)[1], name) for name, x, y in pairs)
 
 
-def cli_rt_phase(data_dir):
-    """``stgx_torch.cli`` for RT-ST-GCN9 at its canonical config: train two
-    epochs (launches a step, artifacts, finite losses), resume from epoch-0
-    (within TOL_RESUME of the unbroken run's parameters and Adam moments),
-    test on ``final`` (the last epoch's top1_val and F1@k again), benchmark
-    (latency line), then one fused train epoch. Returns the launch counts."""
+def cli_frame_phase(data_dir, config, tag, want, seed):
+    """``stgx_torch.cli`` for a frame-kind model at ``config``: train two
+    epochs (every step launching ``want``, artifacts, finite losses), resume
+    from epoch-0 (within TOL_RESUME of the unbroken run's parameters and Adam
+    moments), test on ``final`` (the last epoch's top1_val and F1@k again),
+    benchmark (latency line). Returns the launch counts and the command
+    line's overrides."""
     import numpy as np
 
-    from stgx_torch.ops.rt_fused import set_rt_fused
-
-    set_rt_fused(False)
-    base = cli_data(data_dir, CLI_TRIALS, CLI_LEN, SEED + 2) + [
+    base = cli_data(data_dir, CLI_TRIALS, CLI_LEN, seed) + [
         "optimizer.epochs=2", "optimizer.checkpoint_indices=[0]",
         f"optimizer.batch_size={CLI_BS}"]
-    out = os.path.join(data_dir, "rt9")
-    n = len(load_cfg(CONFIG)["arch"]["rt-st-gcn"]["in_ch"])
+    out = os.path.join(data_dir, tag)
     parts = {}
     reset_counts()
     with step_launches() as steps:
-        run_cli("train", CONFIG, *base, f"processor.out={out}")
+        run_cli("train", config, *base, f"processor.out={out}")
     parts["train"] = counts()
-    check_steps("cli rt9 train", steps,
-                {"gcn_core": 2 * n, "gcn_grads": n, "window_sum": 2 * n})
+    check_steps(f"cli {tag} train", steps, want)
     for name in ("train-validation-curve.csv", "accuracy-curve.csv", "macro-F1@k-0.csv",
                  "macro-F1@k-1.csv", "edit-0.csv", "edit-1.csv", "confusion-matrix-0.csv",
                  "confusion-matrix-1.csv", "segmentation-0.csv", "epoch-0", "final"):
-        check(os.path.exists(os.path.join(out, name)), f"cli rt9 train: no {name}")
+        check(os.path.exists(os.path.join(out, name)), f"cli {tag} train: no {name}")
     curve = np.asarray(read_csv(os.path.join(out, "train-validation-curve.csv"))[1:], float)
     check(curve.shape[0] == 2 and np.isfinite(curve[:, 1:5]).all(),
-          f"cli rt9 train: curve {curve.tolist()}")
+          f"cli {tag} train: curve {curve.tolist()}")
 
-    resumed = os.path.join(data_dir, "rt9-resumed")
-    run_cli("train", CONFIG, *base, f"processor.out={resumed}",
+    resumed = os.path.join(data_dir, f"{tag}-resumed")
+    run_cli("train", config, *base, f"processor.out={resumed}",
             f"processor.checkpoint={out}/epoch-0")
     err, name = checkpoint_err(os.path.join(out, "final"), os.path.join(resumed, "final"))
-    print(f"cli rt9: resumed from epoch-0 vs the unbroken run, final parameters and Adam "
+    print(f"cli {tag}: resumed from epoch-0 vs the unbroken run, final parameters and Adam "
           f"moments: worst relative error {err:.3e} ({name}, tolerance {TOL_RESUME:g})",
           flush=True)
-    check(err <= TOL_RESUME, f"cli rt9 resume: {name} off by {err:.3e}")
+    check(err <= TOL_RESUME, f"cli {tag} resume: {name} off by {err:.3e}")
 
     reset_counts()
-    run_cli("test", CONFIG, *base, f"processor.out={out}", f"processor.checkpoint={out}/final")
+    run_cli("test", config, *base, f"processor.out={out}", f"processor.checkpoint={out}/final")
     parts["test"] = counts()
     top1 = float(read_csv(os.path.join(out, "accuracy.csv"))[1][0])
     f1 = read_csv(os.path.join(out, "macro-F1@k.csv"))
-    print(f"cli rt9 test on final: top1 {top1} (epoch 1's top1_val {curve[1, 7]}), F1@k "
+    print(f"cli {tag} test on final: top1 {top1} (epoch 1's top1_val {curve[1, 7]}), F1@k "
           f"{f1[1]} (epoch 1's {read_csv(os.path.join(out, 'macro-F1@k-1.csv'))[1]})",
           flush=True)
-    check(top1 == curve[1, 7], "cli rt9 test: top1 is not the last epoch's top1_val")
+    check(top1 == curve[1, 7], f"cli {tag} test: top1 is not the last epoch's top1_val")
     # the F1@k, edit and confusion counts (every prediction against its
     # label) of the last epoch's evaluation, again
     for name in ("macro-F1@k", "edit", "confusion-matrix"):
         check(read_csv(os.path.join(out, f"{name}.csv"))
               == read_csv(os.path.join(out, f"{name}-1.csv")),
-              f"cli rt9 test: {name}.csv is not the last epoch's")
+              f"cli {tag} test: {name}.csv is not the last epoch's")
 
     reset_counts()
-    text = run_cli("benchmark", CONFIG, *base, f"processor.out={out}",
+    text = run_cli("benchmark", config, *base, f"processor.out={out}",
                    f"processor.checkpoint={out}/final")
     parts["benchmark"] = counts()
     bench = json.loads([line for line in text.splitlines() if line.startswith("{")][-1])
     check(bench["latency_ms_per_frame"] > 0 and bench["p99_ms"] > 0
-          and bench["clock"] == "cuda_events", f"cli rt9 benchmark: {bench}")
+          and bench["clock"] == "cuda_events", f"cli {tag} benchmark: {bench}")
     for name in ("latency.csv", "model-size.csv", "accuracy.csv"):
-        check(os.path.exists(os.path.join(out, name)), f"cli rt9 benchmark: no {name}")
+        check(os.path.exists(os.path.join(out, name)), f"cli {tag} benchmark: no {name}")
+    return parts, base
 
+
+def cli_rt_phase(data_dir):
+    """``stgx_torch.cli`` for RT-ST-GCN9 at its canonical config
+    (``cli_frame_phase``), then one fused train epoch. Returns the launch
+    counts."""
+    from stgx_torch.ops.rt_fused import set_rt_fused
+
+    set_rt_fused(False)
+    n = len(load_cfg(CONFIG)["arch"]["rt-st-gcn"]["in_ch"])
+    parts, base = cli_frame_phase(data_dir, CONFIG, "rt9",
+                                  {"gcn_core": 2 * n, "gcn_grads": n, "window_sum": 2 * n},
+                                  SEED + 2)
     reset_counts()
     with step_launches() as steps:
         run_cli("train", CONFIG, *base, "optimizer.epochs=1", "arch.rt_fused=true",
@@ -1491,23 +1946,47 @@ def cli_rt_phase(data_dir):
     return parts
 
 
-def cli_gamma69_phase(data_dir):
-    """``stgx_torch.cli`` train (one epoch) and test at Gamma = 69."""
-    base = cli_data(data_dir, CLI_TRIALS, CLI_LEN, SEED + 3) + [
-        "optimizer.epochs=1", f"processor.out={os.path.join(data_dir, 'rt69')}"]
-    n = len(load_cfg(CONFIG_69)["arch"]["rt-st-gcn"]["in_ch"])
+def cli_gamma69_phase(data_dir, config=CONFIG_69, tag="Gamma=69", want=None, seed=SEED + 3):
+    """``stgx_torch.cli`` train (one epoch) and test at Gamma = 69, every
+    train step launching ``want`` (RT-ST-GCN's unfused kernels if None)."""
+    base = cli_data(data_dir, CLI_TRIALS, CLI_LEN, seed) + [
+        "optimizer.epochs=1", f"processor.out={os.path.join(data_dir, 'g69')}"]
+    n = len(build_cfg_layers(config))
+    if want is None:
+        want = {"gcn_core": 2 * n, "gcn_grads": n, "window_sum": 2 * n}
     reset_counts()
     with step_launches() as steps:
-        run_cli("train", CONFIG_69, *base)
+        run_cli("train", config, *base)
     parts = {"train": counts()}
-    check_steps("cli Gamma=69 train", steps,
-                {"gcn_core": 2 * n, "gcn_grads": n, "window_sum": 2 * n})
+    check_steps(f"cli {tag} train", steps, want)
     reset_counts()
-    run_cli("test", CONFIG_69, *base)
+    run_cli("test", config, *base)
     parts["test"] = counts()
-    check(parts["test"]["gcn_core"] > 0 and parts["test"]["window_sum"] > 0
-          and parts["test"]["gcn_core"] % n == 0, f"cli Gamma=69 test: {parts['test']}")
+    check(parts["test"]["gcn_core"] > 0 and parts["test"]["gcn_core"] % n == 0
+          and all(parts["test"][k] > 0 for k in want if k != "gcn_grads"),
+          f"cli {tag} test: {parts['test']}")
     return parts
+
+
+def cli_costgcn_phase(data_dir):
+    """``stgx_torch.cli`` for CoST-GCN: Gamma = 9 (``cli_frame_phase``) and
+    Gamma = 69 (one epoch and test), each train step launching gcn_core for
+    y and gx and gcn_grads once a layer. Returns the launch counts."""
+    n = len(build_cfg_layers(CO_CONFIG))
+    want = {"gcn_core": 2 * n, "gcn_grads": n}
+    parts, _ = cli_frame_phase(os.path.join(data_dir, "g9"), CO_CONFIG, "co9", want, SEED + 10)
+    for k, v in cli_gamma69_phase(os.path.join(data_dir, "g69"), CO_CONFIG_69,
+                                  "CoST-GCN Gamma=69", want, SEED + 11).items():
+        parts[f"g69 {k}"] = v
+    return parts
+
+
+def build_cfg_layers(config):
+    """The layer widths (in_ch) a config builds: the family's own sub-dict,
+    else the st-gcn one the builder falls back to."""
+    cfg = load_cfg(config)
+    arch = cfg["arch"]
+    return arch.get(cfg["processor"]["model"], arch.get("st-gcn"))["in_ch"]
 
 
 def cli_shift_phase(data_dir):
@@ -1544,10 +2023,10 @@ def load_cfg(path, overrides=()):
 
 
 def remat_phase():
-    """One RT9 train step (N_TRAIN x L_TRAIN, dropout REMAT_DROPOUT from an
-    explicit generator) and one Shift-GCN chunk step (SG_SEGMENT windows)
-    with ``arch.remat`` on and off: gradients within TOL_GRAD of each other,
-    peak device memory of each."""
+    """One RT9 and one CoST-GCN9 train step (N_TRAIN x L_TRAIN, dropout
+    REMAT_DROPOUT from an explicit generator) and one Shift-GCN chunk step
+    (SG_SEGMENT windows) with ``arch.remat`` on and off: gradients within
+    TOL_GRAD of each other, peak device memory of each."""
     import numpy as np
     import torch
 
@@ -1561,6 +2040,9 @@ def remat_phase():
         "rt-st-gcn": (CONFIG, "frame", [f"arch.rt-st-gcn.dropout={[REMAT_DROPOUT] * 9}"],
                       (N_TRAIN, L_TRAIN), (N_TRAIN, L_TRAIN)),
         "shift-gcn": (SG_CONFIG, "window", [], (SG_SEGMENT, w), (SG_SEGMENT,)),
+        # the ln configs keep CoST-GCN's layers under "st-gcn"
+        "co-st-gcn": (CO_CONFIG, "frame", [f"arch.st-gcn.dropout={[REMAT_DROPOUT] * 9}"],
+                      (N_TRAIN, L_TRAIN), (N_TRAIN, L_TRAIN)),
     }
     for name, (config, kind, sets, shape, series) in cases.items():
         x = torch.tensor(rng.normal(size=(*shape, 25, 3)), dtype=torch.float32, device="cuda")
@@ -1694,15 +2176,16 @@ def run() -> int:
         return 2
     os.chdir(here)
     sys.path.insert(0, here)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     import numpy as np
 
+    from stgx_torch import strict_numerics
     from stgx_torch.bench.serving import WARMUP_STEPS, measure_step_latency
     from stgx_torch.config import build_model, load_config
     from stgx_torch.kernels import build
     from stgx_torch.models.rtstgcn import stream_sequence
+
+    strict_numerics()  # TF32 off for matmul and cuDNN; cuDNN deterministic
 
     smi = smi_line()
     print(smi, flush=True)
@@ -1864,16 +2347,58 @@ def run() -> int:
               f"{rec['frames']} frames: p50 {rec['step_ms_p50']:.3f} ms, "
               f"{rec['frames_per_s']:.0f} windows/s [{smi_now}]", flush=True)
 
+    # CoST-GCN: the batch form, the serving cell, the drift check, the
+    # training path and train throughput, each with the counters at zero
+    co_launched = {k: 0 for k in launched}
+    t_phase = time.perf_counter()
+    temporal_conv_phase()
+    phase_done("CoST-GCN temporal conv", t_phase)
+    for name, phase in (("CoST-GCN batch form", costgcn_forward_phase),
+                        ("CoST-GCN serving", costgcn_streaming_phase),
+                        ("stream drift", drift_phase)):
+        t_phase = time.perf_counter()
+        for key, part in phase().items():
+            launched = {k: launched[k] + part[k] for k in launched}
+            if "rt-st-gcn" not in key:  # the drift check's RT cell
+                co_launched = {k: co_launched[k] + part[k] for k in co_launched}
+        phase_done(name, t_phase)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data_dir:
+        for part in costgcn_training_phase(data_dir).values():
+            launched = {k: launched[k] + part[k] for k in launched}
+            co_launched = {k: co_launched[k] + part[k] for k in co_launched}
+    phase_done("CoST-GCN training path", t_phase)
+    t_phase = time.perf_counter()
+    co_throughput = costgcn_throughput_phase()
+    phase_done("CoST-GCN train throughput", t_phase)
+    smi_now = smi_line()
+    for rec in co_throughput:
+        prof = rec["profile"]
+        print(f"CoST-GCN train step {rec['dtype']}, {rec['trials']} x {rec['frames']} frames: "
+              f"p50 {rec['step_ms_p50']:.3f} ms, {rec['frames_per_s']:.0f} frames/s, "
+              f"{rec['model_tflops']:.3f} model TFLOP/s ({100 * rec['peak_share']:.2f} % of "
+              f"peak), HBM share {100 * rec['hbm_share']:.2f} %, device busy "
+              f"{100 * prof['busy_share']:.1f} %, {prof['launches_per_step']:.0f} launches a "
+              f"step, temporal convs {100 * rec['conv_share']:.1f} % of device time "
+              f"[{smi_now}]", flush=True)
+
     # the entry points a user runs: the CLI for RT-ST-GCN9 (unfused and
-    # fused), at Gamma = 69 and for Shift-GCN, each with the counters at
-    # zero; remat; the headline's functions
+    # fused), at Gamma = 69, for Shift-GCN and for CoST-GCN, each with the
+    # counters at zero; remat; the headline's functions
     for name, phase in (("CLI RT-ST-GCN9", cli_rt_phase), ("CLI Gamma=69", cli_gamma69_phase),
-                        ("CLI Shift-GCN", cli_shift_phase)):
+                        ("CLI Shift-GCN", cli_shift_phase), ("CLI CoST-GCN", cli_costgcn_phase)):
         t_phase = time.perf_counter()
         with tempfile.TemporaryDirectory() as data_dir:
             for part in phase(data_dir).values():
                 launched = {k: launched[k] + part[k] for k in launched}
+                if phase is cli_costgcn_phase:
+                    co_launched = {k: co_launched[k] + part[k] for k in co_launched}
         phase_done(name, t_phase)
+    print(f"launches on the CoST-GCN paths (batch form, serving, drift, training, CLI): "
+          f"{json.dumps(co_launched)}", flush=True)
+    check(co_launched["gcn_core"] > 0 and co_launched["gcn_grads"] > 0
+          and sum(co_launched.values()) == co_launched["gcn_core"] + co_launched["gcn_grads"],
+          f"the CoST-GCN paths launched {co_launched}")
     t_phase = time.perf_counter()
     remat_phase()
     phase_done("remat", t_phase)
@@ -1908,7 +2433,8 @@ def run() -> int:
           f"one batch forward's shapes (N={N_BATCH}, L={L_BATCH}), the backward ones at "
           f"one train step's (N={N_TRAIN}, L={L_TRAIN}); temporal_shift over the 20 "
           f"launches of one Shift-GCN forward of {SG_WINDOWS} windows; launches are those "
-          f"of the serving, training and CLI paths of both models; gcn_core and gcn_grads "
+          f"of the serving, training and CLI paths of RT-ST-GCN, Shift-GCN and CoST-GCN; "
+          f"gcn_core and gcn_grads "
           f"also give their fp32 route's bound and their bf16 times and bound, rt_fused "
           f"and rt_fused_bwd the port's unfused kernels for the same function "
           f"(unfused_ms) and their bf16 times and bound",

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from stgx_torch.bench.streaming import measure_stream_latency
-from stgx_torch.bench.train_throughput import H100_PEAK_FLOPS, NUM_CLASSES
+from stgx_torch.bench.train_throughput import H100_HBM_BYTES_S, H100_PEAK_FLOPS, NUM_CLASSES
 from stgx_torch.models.rtstgcn import init_stream_state, stream_step
 from stgx_torch.utils.flops import rt_stgcn_macs_per_frame, rt_stgcn_train_hbm_bytes_per_frame
 
@@ -67,7 +67,6 @@ REPEATS = 4
 DISPATCH_FRAMES = 64  # graph-free steps for per_dispatch_ms, as bench.py
 TRAIN_TRIALS, TRAIN_FRAMES = 8, 1024
 BASELINE_MS = 20.0  # the reference's RT-ST-GCN9 fp32 per-frame latency
-HBM_BYTES_S = 3.35e12  # H100 SXM
 LATENCY_NOTE = (
     "value = per-frame time of the streaming step captured in a CUDA graph "
     "and replayed frame after frame (host dispatch taken out, as the JAX "
@@ -186,7 +185,7 @@ def assemble(frame_ms, per_dispatch_ms: float, card_line: str, train=None) -> di
             train_model_tflops=tflops,
             train_mfu_pct=100 * tflops * 1e12 / H100_PEAK_FLOPS["bfloat16"],
             train_hbm_sol_pct=100 * best * rt_stgcn_train_hbm_bytes_per_frame()
-            / HBM_BYTES_S,
+            / H100_HBM_BYTES_S,
             train_form=form,
         )
     return result
@@ -237,10 +236,10 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the headline benchmark is a device measurement; no CUDA "
                            "device is available")
+    from stgx_torch import strict_numerics
     from stgx_torch.config import build_model, load_config
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    strict_numerics()
     cfg = load_config(CONFIG)
     frame_ms, per_dispatch_ms, _ = streaming_figures(build_model(cfg, NUM_CLASSES))
     train = None if args.no_train else train_figures(cfg)

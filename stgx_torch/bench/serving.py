@@ -1,5 +1,6 @@
 """Serving capacity: concurrent real-time streams one H100 sustains — the
-port of the plain cell of ``stgx/bench/serving.py``.
+port of the plain cells of ``stgx/bench/serving.py`` (RT-ST-GCN and
+CoST-GCN).
 
 A serving deployment runs many captures at once: the streaming cell's FIFO
 carry is batched over a leading stream axis, so one step advances B streams
@@ -17,10 +18,18 @@ Numerics: the FIFO carries never mix streams. Under LayerNorm co-served
 streams are independent; under BatchNorm (no running stats) the stats are
 taken over the frame of every stream in the batch, so B co-served streams
 share them. That is a deployment choice of the JAX package, kept as it is.
+:func:`check_stream_drift` (``--check-drift``) streams one capture through
+the fp32 cell and the ``--dtype`` one and reports how far the logits drift
+apart, and whether the drift grows along the stream.
 
 Run (on the card):
-    python -m stgx_torch.bench.serving --config configs/pku-mmd/as_is/rtstgcn.json
-        --batches 1,64 --frames 256 [--dtype bfloat16] [--bisect] [--profile]
+    python -m stgx_torch.bench.serving [--model rt-st-gcn|co-st-gcn]
+        [--config F] [--kernel GAMMA] --batches 1,64 --frames 256
+        [--dtype bfloat16] [--check-drift] [--bisect] [--profile]
+
+``--model`` picks the family's canonical config (``FAMILY_CONFIGS``) unless
+``--config`` names another. The JAX package's int8 cells (``--quant``,
+``--state-dtype``) are not ported yet and raise.
 
 Prints one JSON line per batch size and a final capacity line. With
 ``--profile`` each batch size also gets a line that says where a step's
@@ -40,13 +49,14 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from stgx_torch.bench.streaming import timed_steps
-from stgx_torch.models.rtstgcn import init_stream_state, stream_step
+from stgx_torch.bench.streaming import streaming_fns, timed_steps
+from stgx_torch.config import FAMILY_CONFIGS
 
 __all__ = [
     "serving_cell",
     "make_frames",
     "measure_step_latency",
+    "check_stream_drift",
     "bisect_capacity",
     "profile_steps",
     "main",
@@ -58,12 +68,19 @@ NUM_CLASSES = 52  # PKU-MMD's action classes
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _refuse_quant(quant, state_dtype=None) -> None:
+    if quant is not None or state_dtype is not None:
+        raise NotImplementedError(
+            "the int8 serving cells (quant, state_dtype) are not ported to "
+            "stgx_torch yet; see ROADMAP.md, queue 1 item 6")
+
+
 def serving_cell(model, batch: int, dtype=None):
     """``(state0, model_like)`` of the plain fp32 or bf16 cell: parameters
     and FIFO state both in ``dtype`` (the model itself is left as it is)."""
     if dtype is not None and dtype != next(model.parameters()).dtype:
         model = copy.deepcopy(model).to(dtype)
-    return init_stream_state(model, batch=batch, dtype=dtype), model
+    return streaming_fns(model)[0](model, batch=batch, dtype=dtype), model
 
 
 def make_frames(model, batch: int, frames: int, dtype=None):
@@ -100,6 +117,7 @@ def profile_steps(model, batch: int, frames: int = 64, dtype=None):
 
     state, cell = serving_cell(model, batch, dtype)
     x = make_frames(cell, batch, frames, dtype)
+    stream_step = streaming_fns(cell)[1]
     for _ in range(WARMUP_STEPS):
         _, state = stream_step(cell, state, x[0])
     torch.cuda.synchronize()
@@ -125,6 +143,44 @@ def profile_steps(model, batch: int, frames: int = 64, dtype=None):
              "per_step": count[n] / frames}
             for n in order[:6]
         ],
+    }
+
+
+def check_stream_drift(model, l: int = 256, batch: int = 4, seed: int = 0,
+                       dtype=None, quant=None, state_dtype=None) -> dict:
+    """Stream one capture of ``l`` frames and ``batch`` streams (normal
+    from ``seed``) through the fp32 cell and the ``dtype`` cell (fp32 if
+    None) of ``model``, frame by frame; returns the drift of the per-frame
+    logits: ``max_abs_drift``, ``max_rel_drift`` (over max|fp32 logits|),
+    the max abs drift of each half of the stream, and ``top1_agreement``,
+    the share of (frame, stream) pairs with the same top-1. A FIFO slot is
+    rounded once when it is written, so the drift should stay bounded along
+    the stream rather than grow with it. ``quant`` and ``state_dtype`` (the
+    int8 cells) raise ``NotImplementedError``."""
+    _refuse_quant(quant, state_dtype)
+    rng = np.random.default_rng(seed)
+    frames = torch.tensor(rng.normal(size=(l, batch, model.num_joints, model.in_feat)),
+                          dtype=torch.float32, device=model.A.device)
+
+    def run(dt):
+        state, cell = serving_cell(model, batch, dt)
+        step = streaming_fns(cell)[1]
+        fr = frames if dt is None else frames.to(dt)
+        outs = []
+        for t in range(l):
+            logits, state = step(cell, state, fr[t])
+            outs.append(logits.float())
+        return torch.stack(outs).cpu().numpy()
+
+    ref, got = run(torch.float32), run(dtype)
+    err = np.abs(got - ref)
+    half = l // 2
+    return {
+        "max_abs_drift": float(err.max()),
+        "max_rel_drift": float(err.max() / max(float(np.abs(ref).max()), 1e-9)),
+        "max_abs_drift_first_half": float(err[:half].max()),
+        "max_abs_drift_second_half": float(err[half:].max()),
+        "top1_agreement": float((got.argmax(-1) == ref.argmax(-1)).mean()),
     }
 
 
@@ -154,7 +210,13 @@ def bisect_capacity(probe_ms, lo: int, hi: int, budget_ms: float,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m stgx_torch.bench.serving")
-    ap.add_argument("--config", default="configs/pku-mmd/as_is/rtstgcn.json")
+    ap.add_argument("--model", default=None, choices=sorted(FAMILY_CONFIGS),
+                    help="the family, served from its canonical config "
+                    "(default rt-st-gcn)")
+    ap.add_argument("--config", default=None,
+                    help="the model's config (default: the --model family's)")
+    ap.add_argument("--kernel", type=int, default=None,
+                    help="temporal kernel Gamma override (default: the config's)")
     ap.add_argument("--batches", default="1,64",
                     help="comma-list of concurrent-stream batch sizes")
     ap.add_argument("--fps", type=float, default=30.0,
@@ -162,6 +224,13 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=256,
                     help="frames streamed per batch size")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--quant", default=None, choices=["int8-static"],
+                    help="the int8 cell (not ported yet: raises)")
+    ap.add_argument("--state-dtype", default=None, choices=["float32", "bfloat16", "int8"],
+                    help="FIFO-state type of the int8 cell (not ported yet: raises)")
+    ap.add_argument("--check-drift", action="store_true",
+                    help="also stream one capture through the fp32 cell and the "
+                    "--dtype one and print the logits' drift")
     ap.add_argument("--bisect", action="store_true",
                     help="binary-search the real-time boundary between the "
                     "largest real-time and smallest late measured batch")
@@ -171,15 +240,26 @@ def main(argv=None):
                     help="also trace 64 steps per batch size and print where "
                     "a step's time goes")
     args = ap.parse_args(argv)
+    _refuse_quant(args.quant, args.state_dtype)
 
+    from stgx_torch import strict_numerics
     from stgx_torch.config import build_model, load_config
 
-    cfg = load_config(args.config)
+    strict_numerics()
+    cfg = load_config(args.config or FAMILY_CONFIGS[args.model or "rt-st-gcn"])
+    name = cfg["processor"]["model"]
+    if args.model is not None and name != args.model:
+        raise ValueError(f"--model {args.model} but {args.config} configures {name}")
+    if args.kernel is not None:
+        set_kernel(cfg, args.kernel)
     model = build_model(cfg, NUM_CLASSES)
     dtype = DTYPES[args.dtype]
     budget_ms = 1e3 / args.fps
-    variant = {"model": cfg["processor"]["model"], "dtype": args.dtype,
+    variant = {"model": name, "dtype": args.dtype, "kernel": model.kernel,
                "device": torch.cuda.get_device_name(model.A.device)}
+    if args.check_drift:
+        drift = check_stream_drift(model, dtype=dtype)
+        print(json.dumps({**variant, "drift": drift}), flush=True)
 
     def probe(b):
         try:
@@ -236,6 +316,17 @@ def main(argv=None):
         "note": note,
     }), flush=True)
     return results
+
+
+def set_kernel(cfg, gamma: int) -> None:
+    """Set the temporal kernel Γ of ``cfg`` wherever ``build_model`` may
+    read it: ``arch.kernel`` and the family's sub-dict (or the ``st-gcn``
+    one it falls back to)."""
+    arch = cfg["arch"]
+    arch["kernel"] = gamma
+    for key in (cfg["processor"]["model"], "st-gcn"):
+        if isinstance(arch.get(key), dict):
+            arch[key]["kernel"] = gamma
 
 
 if __name__ == "__main__":

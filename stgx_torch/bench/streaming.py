@@ -2,8 +2,8 @@
 ``stgx/bench/streaming.py:measure_stream_latency``.
 
 The deployed realtime loop calls a one-frame cell once per arriving frame,
-threading its state. RT-ST-GCN's cell is its FIFO streaming step
-(:func:`stgx_torch.models.rtstgcn.stream_step`). A window classifier (the
+threading its state. RT-ST-GCN's and CoST-GCN's cells are their FIFO
+streaming steps (:func:`streaming_fns`). A window classifier (the
 JAX package's ``WINDOW_MODELS``; Shift-GCN in the port) streams by
 re-running its window on each frame (:func:`window_step`): a ``(B, W, V,
 C)`` buffer that starts as zeros (the empty buffer), is rolled by one
@@ -37,10 +37,21 @@ import time
 import numpy as np
 import torch
 
-from stgx_torch.models.rtstgcn import RtStgcn, init_stream_state, stream_step
+from stgx_torch.models import costgcn, rtstgcn
 
 __all__ = ["measure_stream_latency", "timed_steps", "init_window_state",
-           "window_step", "run_streaming_benchmark"]
+           "window_step", "streaming_fns", "run_streaming_benchmark"]
+
+# the continual families and the modules of their FIFO cells
+_CELLS = {rtstgcn.RtStgcn: rtstgcn, costgcn.CoStgcn: costgcn}
+
+
+def streaming_fns(model):
+    """``(init_stream_state, stream_step)`` of the model's FIFO cell, or
+    ``None`` for a window classifier, which streams through
+    :func:`window_step`."""
+    mod = _CELLS.get(type(model))
+    return None if mod is None else (mod.init_stream_state, mod.stream_step)
 
 
 def init_window_state(model, batch: int = 1, window: int = 50, dtype=None):
@@ -60,16 +71,18 @@ def window_step(model, state, x_t):
     return model(buf), {"buf": buf}
 
 
-def timed_steps(model, state, frames, warmup: int = 20, step=stream_step):
-    """Stream ``frames`` ``(L, B, V, C)`` through the cell ``step`` from
-    ``state``, timing each step with CUDA events after ``warmup`` untimed
-    steps on frame 0 (from a throwaway copy of the state).
+def timed_steps(model, state, frames, warmup: int = 20, step=None):
+    """Stream ``frames`` ``(L, B, V, C)`` through the cell ``step`` (the
+    model's FIFO step if None) from ``state``, timing each step with CUDA
+    events after ``warmup`` untimed steps on frame 0 (from a throwaway copy
+    of the state).
 
     Returns ``(logits (B, L, classes), step_ms (L,))``.
     """
     if frames.device.type != "cuda":
         raise RuntimeError("step latency is a device measurement; frames are "
                            f"on {frames.device}")
+    step = step or streaming_fns(model)[1]
     warm_state = state
     for _ in range(warmup):
         _, warm_state = step(model, warm_state, frames[0])
@@ -91,7 +104,7 @@ def timed_steps(model, state, frames, warmup: int = 20, step=stream_step):
 
 def measure_stream_latency(model, frames, warmup: int = 20, window: int = 50):
     """Per-frame latency stats over one ``(L, V, C)`` capture at B = 1,
-    through RT-ST-GCN's FIFO cell or, for a window model, the window cell
+    through the model's FIFO cell or, for a window model, the window cell
     of ``window`` frames.
 
     Returns ``(mean_ms, p50_ms, p99_ms, logits (L, classes))``.
@@ -104,10 +117,12 @@ def measure_stream_latency(model, frames, warmup: int = 20, window: int = 50):
 
 def _cell(model, frames, window):
     """``(state, step)`` of the model's streaming cell for ``frames`` ``(L,
-    B, V, C)``: RT-ST-GCN's FIFO cell, else the window cell."""
-    if isinstance(model, RtStgcn):
-        return init_stream_state(model, batch=frames.shape[1], dtype=frames.dtype), stream_step
-    return init_window_state(model, frames.shape[1], window, frames.dtype), window_step
+    B, V, C)``: its FIFO cell, else the window cell."""
+    fns = streaming_fns(model)
+    if fns is None:
+        return init_window_state(model, frames.shape[1], window, frames.dtype), window_step
+    init, step = fns
+    return init(model, batch=frames.shape[1], dtype=frames.dtype), step
 
 
 def _stats(step_ms, logits):

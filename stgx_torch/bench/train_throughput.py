@@ -1,6 +1,6 @@
 """Train-step throughput on the card — the port of
-``stgx/bench/train_throughput.py`` for ``rt-st-gcn`` (the ``frame`` kind)
-and ``shift-gcn`` (the ``window`` kind).
+``stgx/bench/train_throughput.py`` for ``rt-st-gcn`` and ``co-st-gcn`` (the
+``frame`` kind) and ``shift-gcn`` (the ``window`` kind).
 
 One train step is the :class:`~stgx_torch.parallel.loop.Trainer`'s: forward,
 loss, backward through the hand-written kernels and an Adam update, on
@@ -10,15 +10,23 @@ window-kind step takes ``--trials`` windows of the config's receptive field
 W (``--frames`` is unused), and since one window classifies one frame,
 windows/s is frames/s, as in the JAX package. Each step is timed with CUDA
 events after ``WARMUP`` steps; the median of ``STEPS`` steps is the step
-time. For RT-ST-GCN the report also gives the model's TFLOP/s (from
-:func:`stgx_torch.utils.flops.rt_stgcn_macs_per_frame`, ×3 for forward and
-backward, 2 flops a MAC) as a share of the H100's peak for the compute
-type; the JAX package counts no MACs for Shift-GCN, so there both are null.
+time. For the frame-kind models the report also gives the model's TFLOP/s
+(MACs a frame from :mod:`stgx_torch.utils.flops`, ×3 for forward and
+backward, 2 flops a MAC) as a share of the H100's peak for the compute type
+(``peak_share``), and the least device-memory traffic of a step at that
+rate as a share of the H100's bandwidth (``hbm_share``: RT-ST-GCN's bytes a
+frame, CoST-GCN's as an ST-GCN window of one frame with no stride, as the
+JAX package counts them); the JAX package counts neither for Shift-GCN, so
+there they are null.
 
 Run (on the card):
-    python -m stgx_torch.bench.train_throughput [--dtype bfloat16] [--fused] [--profile]
+    python -m stgx_torch.bench.train_throughput [--model co-st-gcn] [--dtype bfloat16]
+        [--fused] [--profile]
     python -m stgx_torch.bench.train_throughput \
         --config configs/pku-mmd/as_is/shiftgcn.json --trials 256 [--dtype bfloat16]
+
+``--model`` picks the family's canonical config (RT-ST-GCN₉ or CoST-GCN₉ at
+their PKU-MMD widths) unless ``--config`` names another.
 
 Prints one JSON line. With ``--profile`` a second line says where a step's
 device time goes: ``torch.profiler`` over a separate window of steps, the
@@ -34,20 +42,26 @@ import json
 import numpy as np
 import torch
 
-from stgx_torch.config import build_model, load_config
+from stgx_torch import strict_numerics
+from stgx_torch.config import FAMILY_CONFIGS, build_model, load_config
 from stgx_torch.ops.rt_fused import set_rt_fused
 from stgx_torch.parallel.loop import MODEL_KIND, OptimizerConfig, Trainer
 from stgx_torch.utils import LOSS
-from stgx_torch.utils.flops import rt_stgcn_macs_per_frame
+from stgx_torch.utils.flops import (
+    costgcn_macs_per_frame,
+    rt_stgcn_macs_per_frame,
+    rt_stgcn_train_hbm_bytes_per_frame,
+    stgcn_train_hbm_bytes_per_window,
+)
 
-__all__ = ["make_step", "measure_train_throughput", "profile_steps", "main",
-           "H100_PEAK_FLOPS"]
+__all__ = ["make_step", "measure_train_throughput", "profile_steps", "rooflines", "main",
+           "H100_PEAK_FLOPS", "H100_HBM_BYTES_S"]
 
-CONFIG = "configs/pku-mmd/as_is/rtstgcn.json"
 NUM_CLASSES = 52  # PKU-MMD's action classes
 # H100 SXM, NVIDIA data sheet (dense, 700 W): fp32 outside the tensor cores,
-# bf16 on them
+# bf16 on them; HBM3 bandwidth
 H100_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+H100_HBM_BYTES_S = 3.35e12
 STEPS, WARMUP = 10, 2  # timed steps (their median is reported), untimed first
 PROFILE_STEPS, PROFILE_TOP = 2, 12  # profiled steps, kernels listed
 SEED = 0  # of the random trials
@@ -136,9 +150,36 @@ def profile_steps(step, top: int | None = PROFILE_TOP) -> dict:
     }
 
 
+def rooflines(model, name: str, dtype: str):
+    """``(MACs a frame, least device-memory bytes a trained frame)`` of a
+    frame-kind model at its widths, or ``(None, None)`` for a family the
+    JAX package counts neither for."""
+    if name not in ("rt-st-gcn", "co-st-gcn"):
+        return None, None
+    shape = dict(in_ch=model.in_ch, out_ch=model.out_ch,
+                 num_joints=model.num_joints, partitions=model.partitions,
+                 in_feat=model.in_feat)
+    residual = tuple(int(layer.residual) for layer in model.layers)
+    dtype_bytes = 2 if dtype == "bfloat16" else 4
+    if name == "rt-st-gcn":
+        return (rt_stgcn_macs_per_frame(num_classes=NUM_CLASSES, residual=residual, **shape),
+                rt_stgcn_train_hbm_bytes_per_frame(dtype_bytes=dtype_bytes, **shape))
+    # continual layers keep every frame: an ST-GCN window of one frame with
+    # no stride decimation
+    return (costgcn_macs_per_frame(num_classes=NUM_CLASSES, kernel=model.kernel,
+                                   residual=residual, **shape),
+            stgcn_train_hbm_bytes_per_window(window=1, stride=(1,) * len(model.in_ch),
+                                             residual=residual, dtype_bytes=dtype_bytes,
+                                             **shape))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default=CONFIG)
+    ap.add_argument("--model", default=None, choices=sorted(FAMILY_CONFIGS),
+                    help="a frame-kind family, trained from its canonical config "
+                    "(default rt-st-gcn)")
+    ap.add_argument("--config", default=None,
+                    help="the model's config (default: the --model family's)")
     ap.add_argument("--dtype", default="float32", choices=sorted(H100_PEAK_FLOPS))
     ap.add_argument("--fused", action="store_true",
                     help="the fused layer core (rt_fused forward and backward kernels)")
@@ -150,8 +191,11 @@ def main(argv=None) -> dict:
                     help="also print where a step's device time goes")
     args = ap.parse_args(argv)
 
-    cfg = load_config(args.config)
+    strict_numerics()
+    cfg = load_config(args.config or FAMILY_CONFIGS[args.model or "rt-st-gcn"])
     name = cfg["processor"]["model"]
+    if args.model is not None and name != args.model:
+        raise ValueError(f"--model {args.model} but {args.config} configures {name}")
     model = build_model(cfg, NUM_CLASSES)
     set_rt_fused(args.fused)
     kind = MODEL_KIND[name]
@@ -163,21 +207,18 @@ def main(argv=None) -> dict:
     )
     frames = cfg["arch"]["receptive_field"] if kind == "window" else args.frames
     fps, p50, step_ms = measure_train_throughput(trainer, args.trials, frames)
-    tflops = share = None
-    if name == "rt-st-gcn":
-        arch = cfg["arch"].get("rt-st-gcn", {})
-        shape = {k: tuple(arch[k]) for k in ("in_ch", "out_ch", "residual") if k in arch}
-        macs = rt_stgcn_macs_per_frame(num_joints=model.num_joints,
-                                       partitions=model.partitions,
-                                       in_feat=model.in_feat, num_classes=NUM_CLASSES,
-                                       **shape)
+    tflops = share = hbm_share = None
+    macs, nbytes = rooflines(model, name, args.dtype)
+    if macs is not None:
         tflops = fps * 3 * 2 * macs / 1e12
         share = tflops * 1e12 / H100_PEAK_FLOPS[args.dtype]
+        hbm_share = fps * nbytes / H100_HBM_BYTES_S
     record = {
         "model": name, "kind": kind, "dtype": args.dtype, "fused": args.fused,
         "trials": args.trials, "frames": frames, "steps": STEPS,
         "step_ms_p50": p50, "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
         "frames_per_s": fps, "model_tflops": tflops, "peak_share": share,
+        "hbm_share": hbm_share, "kernel": getattr(model, "kernel", None),
         "device": torch.cuda.get_device_name(trainer.device),
     }
     print(json.dumps(record), flush=True)

@@ -25,6 +25,7 @@ for a ``torch.profiler`` trace of the first epoch trained.
 The commands run on the CUDA device, or on the CPU when the config's
 ``job.platform`` is ``"cpu"`` (any other value is refused). Not ported yet,
 each refused with its place in ROADMAP.md's queue 1: ``export`` (item 9),
+a ``benchmark`` of the int8 cell (``processor.quantize``, item 6),
 ``job.distributed`` and meshes past one device (item 10), Shift-GCN++'s
 teacher grafting (item 8); and an ``arch.gcn_impl`` other than the
 hand-written kernels, since the port has no other graph-conv route on the
@@ -74,6 +75,9 @@ def _refuse_unported(command, cfg) -> None:
 
     if command == "export":
         refuse("export of the streaming cell", 9)
+    if command == "benchmark" and (cfg["processor"].get("quantize")
+                                   or cfg["processor"].get("state_dtype")):
+        refuse("the int8 streaming cell (processor.quantize, processor.state_dtype)", 6)
     mesh = job.get("mesh") or {}
     if job.get("distributed") or any((mesh.get(k) or 1) > 1 for k in ("data", "seq", "model")):
         refuse("multi-device training (job.distributed, job.mesh)", 10)
@@ -410,9 +414,11 @@ def cmd_benchmark(cfg, device=None):
 
 
 def main(argv=None):
+    from stgx_torch import strict_numerics
     from stgx_torch.config import parse_args
 
     command, cfg = parse_args(argv)
+    strict_numerics()
     try:
         _refuse_unported(command, cfg)
         return {"train": cmd_train, "test": cmd_test,

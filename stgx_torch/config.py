@@ -5,8 +5,8 @@ The config schema is the JAX package's (groups ``processor``, ``arch``,
 overrides winning; :func:`parse_args` reads the command line of
 ``python -m stgx_torch.cli {train|test|benchmark|export} [--config F]
 [--set group.key=value ...]``, the JAX package's grammar. :func:`build_model`
-builds ``rt-st-gcn`` and ``shift-gcn``; the other families raise
-``NotImplementedError`` (see ``ROADMAP.md``).
+builds ``rt-st-gcn``, ``co-st-gcn`` and ``shift-gcn``; the other families
+raise ``NotImplementedError`` (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,13 @@ from stgx_torch.graph import load_skeleton
 from stgx_torch.models import MODELS
 from stgx_torch.ops.rt_fused import set_rt_fused
 
-__all__ = ["load_config", "build_model", "make_parser", "parse_args", "DEFAULTS"]
+__all__ = ["load_config", "build_model", "make_parser", "parse_args", "DEFAULTS",
+           "FAMILY_CONFIGS"]
+
+# the canonical PKU-MMD config of each continual family, which the serving
+# and train-throughput benches take for --model
+FAMILY_CONFIGS = {"rt-st-gcn": "configs/pku-mmd/as_is/rtstgcn.json",
+                  "co-st-gcn": "configs/pku-mmd/ln/costgcn.json"}
 
 DEFAULTS: dict[str, dict[str, Any]] = {
     "processor": {
@@ -151,6 +157,12 @@ def build_model(cfg: dict, num_classes: int, device=None,
         kw["kernel"] = sub.get("kernel", arch.get("kernel", 9))
         kw["importance"] = bool(sub.get("importance", True))
         layer_keys = ("in_ch", "out_ch", "stride", "residual", "dropout")
+    if name == "co-st-gcn":
+        # the reference reuses its stride array as the conv's dilation
+        # (stgx/config.py:158-162): "dilation" wins where both are given, and
+        # the model has no stride
+        layer_keys = ("in_ch", "out_ch", "residual", "dropout")
+        kw["dilation"] = tuple(sub.get("dilation", sub.get("stride", (1,) * 9)))
     for key in layer_keys:
         if key in sub:
             kw[key] = tuple(sub[key])

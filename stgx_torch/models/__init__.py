@@ -1,12 +1,14 @@
-"""Model registry of the port: RT-ST-GCN and Shift-GCN so far; asking for
-any other family of the JAX package raises ``NotImplementedError``."""
+"""Model registry of the port: RT-ST-GCN, CoST-GCN and Shift-GCN so far;
+asking for any other family of the JAX package raises
+``NotImplementedError``."""
 
+from stgx_torch.models.costgcn import CoStgcn
 from stgx_torch.models.rtstgcn import RtStgcn
 from stgx_torch.models.shiftgcn import ShiftGcn
 
 # families of stgx.models that later slices port, in ROADMAP.md's order
 _NOT_PORTED = (
-    "co-st-gcn", "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn++",
+    "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn++",
     "shift-gcn++-teacher",
 )
 
@@ -21,6 +23,6 @@ class _Registry(dict):
         raise KeyError(f"unknown model: {name!r} (have {sorted(self)})")
 
 
-MODELS = _Registry({"rt-st-gcn": RtStgcn, "shift-gcn": ShiftGcn})
+MODELS = _Registry({"rt-st-gcn": RtStgcn, "co-st-gcn": CoStgcn, "shift-gcn": ShiftGcn})
 
-__all__ = ["MODELS", "RtStgcn", "ShiftGcn"]
+__all__ = ["MODELS", "RtStgcn", "CoStgcn", "ShiftGcn"]

@@ -1,6 +1,6 @@
 """Training and evaluation on one device — the port of
-``stgx/parallel/loop.py`` for the ``frame`` kind (RT-ST-GCN) and the
-``window`` kind (Shift-GCN).
+``stgx/parallel/loop.py`` for the ``frame`` kind (RT-ST-GCN, CoST-GCN) and
+the ``window`` kind (Shift-GCN).
 
 * **Unequal-length trials** are padded to static length buckets with frame
   masks (:func:`stgx_torch.parallel.segments.pad_to_bucket`).

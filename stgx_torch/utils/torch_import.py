@@ -4,7 +4,7 @@
 The reference implementation trains with PyTorch and saves ``{epoch,
 model_state_dict, optimizer_state_dict, loss}``. This module turns such a
 ``model_state_dict`` into the JAX package's parameter tree for an
-RT-ST-GCN (the same tree, leaf for leaf, that
+RT-ST-GCN or a CoST-GCN (the same tree, leaf for leaf, that
 ``stgx.utils.torch_import.import_reference_state_dict`` gives), which
 :func:`stgx_torch.weights.from_jax_params` then maps onto the port's
 ``state_dict``; :func:`load_reference_into` does both. The reverse
@@ -18,7 +18,7 @@ prefixes of a DataParallel dict are dropped. A file is read with
 file that holds objects such a load refuses fails with its message.
 
 The reference's other families with an importer in the JAX package
-(``st-gcn``, ``co-st-gcn``, ``ms-tcn``, ``ms-gcn``, ``aa-gcn``) raise
+(``st-gcn``, ``ms-tcn``, ``ms-gcn``, ``aa-gcn``) raise
 ``NotImplementedError`` until their models are ported (ROADMAP.md, queue
 1). Shift-GCN has no reference checkpoints, and no importer in either
 package.
@@ -30,11 +30,19 @@ reference tensor    shape                    tree leaf
 ==================  =======================  =========================
 1×1 Conv2d          (D, C, 1, 1)             Dense kernel (C, D)
 partitioned 1×1     (P·D, C, 1, 1)           GraphConv kernel (P, C, D)
+temporal Conv2d     (D, C, Γ, 1)             tcn_kernel (Γ, C, D)
 custom LayerNorm    (C, 1, V)                scale/bias (V, C)
 BatchNorm1d (V·C)   (V·C,)                   scale/bias (V, C)
 BatchNorm2d         (C,)                     scale/bias (C,)
 edge importance     per-layer (P, V, V)      stacked (layers, P, V, V)
 ==================  =======================  =========================
+
+Names: RT-ST-GCN's layers are ``st_gcn.i`` (graph conv ``conv``, norm
+``bn_relu.0``, edge importance ``st_gcn.i.edge_importance``); CoST-GCN
+keeps ST-GCN's: ``gcn_networks.i`` (graph conv ``gcn.conv``, norms
+``tcn.0`` and ``tcn.3`` around the temporal conv ``tcn.2``, the residual
+``residual.0`` with its bias and ``residual.1``, edge importance
+``edge_importance.i``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stgx_torch.models.rtstgcn import RtStgcn
 from stgx_torch.weights import from_jax_params
 
 __all__ = [
@@ -53,7 +62,8 @@ __all__ = [
 ]
 
 # families the JAX package imports whose models the port lacks
-_NOT_PORTED = ("st-gcn", "co-st-gcn", "ms-tcn", "ms-gcn", "aa-gcn")
+_NOT_PORTED = ("st-gcn", "ms-tcn", "ms-gcn", "aa-gcn")
+_FAMILIES = ("rt-st-gcn", "co-st-gcn")
 
 
 def _check_family(name: str) -> None:
@@ -62,8 +72,8 @@ def _check_family(name: str) -> None:
             f"reference checkpoints of {name!r} are not ported to stgx_torch yet; "
             "see the module queue (queue 1) in ROADMAP.md"
         )
-    if name != "rt-st-gcn":
-        raise ValueError(f"no importer for {name!r}; supported: ['rt-st-gcn']")
+    if name not in _FAMILIES:
+        raise ValueError(f"no importer for {name!r}; supported: {list(_FAMILIES)}")
 
 
 def _np(v) -> np.ndarray:
@@ -92,6 +102,12 @@ def _has_res_conv(model, i) -> bool:
 # -- reference → tree ---------------------------------------------------------
 
 
+def _names(model):
+    """``(rt, layer key)``: RT-ST-GCN's naming, or ST-GCN's (CoST-GCN)."""
+    rt = isinstance(model, RtStgcn)
+    return rt, "st_gcn" if rt else "gcn_networks"
+
+
 def _conv1x1(sd, key):
     """(D, C, 1, 1) + (D,) → {'kernel': (C, D), 'bias': (D,)}."""
     out = {"kernel": _np(sd[f"{key}.weight"])[:, :, 0, 0].T}
@@ -111,6 +127,12 @@ def _graph_conv(sd, key, partitions):
     return out
 
 
+def _tconv(sd, key):
+    """(D, C, Γ, 1) → kernel (Γ, C, D), bias (D,)."""
+    w = _np(sd[f"{key}.weight"])[:, :, :, 0]  # (D, C, Γ)
+    return w.transpose(2, 1, 0), _np(sd[f"{key}.bias"])
+
+
 def _norm(sd, key, kind, num_joints, per_joint_bn=False):
     """LayerNorm ``(C, 1, V)`` → (V, C); per-joint BatchNorm1d over V·C
     (V-major) → (V, C); BatchNorm2d (C,) → (C,)."""
@@ -124,21 +146,31 @@ def _norm(sd, key, kind, num_joints, per_joint_bn=False):
     return {"scale": w, "bias": b}
 
 
-def _import_layer(sd, base, kind, V, out_ch, res_conv):
-    """One RT layer's subtree at prefix ``base``."""
-    pd = _np(sd[f"{base}.conv.weight"]).shape[0]
-    lp = {"GraphConv_0": _graph_conv(sd, f"{base}.conv", pd // out_ch)}
+def _import_layer(sd, base, kind, V, out_ch, res_conv, rt):
+    """One layer's subtree at prefix ``base``: an RT layer, or a CoST-GCN
+    layer named as ST-GCN's."""
+    conv_key = f"{base}.conv" if rt else f"{base}.gcn.conv"
+    pd = _np(sd[f"{conv_key}.weight"]).shape[0]
+    lp = {"GraphConv_0": _graph_conv(sd, conv_key, pd // out_ch)}
     idx = 0
     if res_conv:
         lp["res_kernel"] = _np(sd[f"{base}.residual.0.weight"])[:, :, 0, 0].T
+        if f"{base}.residual.0.bias" in sd:  # CoST-GCN's has one, RT's not
+            lp["res_bias"] = _np(sd[f"{base}.residual.0.bias"])
         lp[f"{kind}_{idx}"] = _norm(sd, f"{base}.residual.1", kind, V)
         idx += 1
-    lp[f"{kind}_{idx}"] = _norm(sd, f"{base}.bn_relu.0", kind, V)
+    if rt:
+        lp[f"{kind}_{idx}"] = _norm(sd, f"{base}.bn_relu.0", kind, V)
+    else:
+        lp[f"{kind}_{idx}"] = _norm(sd, f"{base}.tcn.0", kind, V)
+        lp["tcn_kernel"], lp["tcn_bias"] = _tconv(sd, f"{base}.tcn.2")
+        lp[f"{kind}_{idx + 1}"] = _norm(sd, f"{base}.tcn.3", kind, V)
     return lp
 
 
-def _import_rtstgcn(sd, model) -> dict:
+def _import_body(sd, model) -> dict:
     kind, V = _kind(model), model.num_joints
+    rt, layer_key = _names(model)
     p = {
         "norm_in": _norm(sd, "norm_in", kind, V, per_joint_bn=True),
         "fcn_in": _conv1x1(sd, "fcn_in"),
@@ -146,11 +178,12 @@ def _import_rtstgcn(sd, model) -> dict:
     }
     imp = []
     for i in range(len(model.in_ch)):
-        base = f"st_gcn.{i}"
+        base = f"{layer_key}.{i}"
         p[f"layers_{i}"] = _import_layer(sd, base, kind, V, model.out_ch[i],
-                                         _has_res_conv(model, i))
-        if f"{base}.edge_importance" in sd:
-            imp.append(_np(sd[f"{base}.edge_importance"]))
+                                         _has_res_conv(model, i), rt)
+        imp_key = f"{base}.edge_importance" if rt else f"edge_importance.{i}"
+        if imp_key in sd:
+            imp.append(_np(sd[imp_key]))
     if imp:
         p["edge_importance"] = np.stack(imp)
     return {"params": p}
@@ -161,7 +194,7 @@ def import_reference_state_dict(state_dict, model, name: str) -> dict:
     the JAX parameter tree of ``model``, a port model of family ``name``
     built with the checkpoint's architecture."""
     _check_family(name)
-    return _import_rtstgcn(_unwrap(state_dict), model)
+    return _import_body(_unwrap(state_dict), model)
 
 
 def load_reference_checkpoint(path: str, model, name: str) -> dict:
@@ -198,6 +231,11 @@ def _inv_graph_conv(gp):
     return out
 
 
+def _inv_tconv(kernel, bias):
+    w = _np(kernel).transpose(2, 1, 0)[:, :, :, None]  # (D, C, Γ, 1)
+    return {"weight": w, "bias": _np(bias)}
+
+
 def _inv_norm(npz, kind, per_joint_bn=False):
     w, b = _np(npz["scale"]), _np(npz["bias"])
     if kind == "LayerNorm":
@@ -219,20 +257,30 @@ def export_reference_state_dict(params: dict, model, name: str) -> dict:
     reference model registers."""
     _check_family(name)
     p, kind, sd = params["params"], _kind(model), {}
+    rt, layer_key = _names(model)
     _emit(sd, "norm_in", _inv_norm(p["norm_in"], kind, per_joint_bn=True))
     _emit(sd, "fcn_in", _inv_conv1x1(p["fcn_in"]))
     _emit(sd, "fcn_out", _inv_conv1x1(p["fcn_out"]))
     for i in range(len(model.in_ch)):
-        base, lp = f"st_gcn.{i}", p[f"layers_{i}"]
-        _emit(sd, f"{base}.conv", _inv_graph_conv(lp["GraphConv_0"]))
+        base, lp = f"{layer_key}.{i}", p[f"layers_{i}"]
+        _emit(sd, f"{base}.conv" if rt else f"{base}.gcn.conv",
+              _inv_graph_conv(lp["GraphConv_0"]))
         idx = 0
         if _has_res_conv(model, i):
             sd[f"{base}.residual.0.weight"] = _np(lp["res_kernel"]).T[:, :, None, None]
+            if "res_bias" in lp:
+                sd[f"{base}.residual.0.bias"] = _np(lp["res_bias"])
             _emit(sd, f"{base}.residual.1", _inv_norm(lp[f"{kind}_{idx}"], kind))
             idx += 1
-        _emit(sd, f"{base}.bn_relu.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
+        if rt:
+            _emit(sd, f"{base}.bn_relu.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
+        else:
+            _emit(sd, f"{base}.tcn.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
+            _emit(sd, f"{base}.tcn.2", _inv_tconv(lp["tcn_kernel"], lp["tcn_bias"]))
+            _emit(sd, f"{base}.tcn.3", _inv_norm(lp[f"{kind}_{idx + 1}"], kind))
         if "edge_importance" in p:
-            sd[f"{base}.edge_importance"] = _np(p["edge_importance"][i])
+            key = f"{base}.edge_importance" if rt else f"edge_importance.{i}"
+            sd[key] = _np(p["edge_importance"][i])
     sd["A"] = model.A.detach().cpu().numpy().astype(np.float32)
     return sd
 
@@ -266,8 +314,8 @@ def import_reference_optimizer(checkpoint: dict, model, name: str):
         )
 
     def moment_tree(field):
-        return _import_rtstgcn({k: state[idx][field] for k, idx in zip(param_keys, order)},
-                               model)
+        return _import_body({k: state[idx][field] for k, idx in zip(param_keys, order)},
+                            model)
 
     count = int(min(float(_np(state[i]["step"])) for i in order))
     return moment_tree("exp_avg"), moment_tree("exp_avg_sq"), count

@@ -1,7 +1,7 @@
 """Carry JAX (flax) variables into the port's ``state_dict``.
 
 The port keeps stgx's parameter shapes, so the mapping is renames only.
-RT-ST-GCN:
+RT-ST-GCN and CoST-GCN:
 
 ==========================================  ===============================
 flax leaf (under ``params``)                port key
@@ -13,6 +13,9 @@ flax leaf (under ``params``)                port key
 ``layers_i/GraphConv_0/{kernel,bias}``      ``layers.i.gcn.{kernel,bias}``
 ``layers_i/<Norm>_k/{scale,bias}``          ``layers.i.{res_norm,norm}.…``
 ``fcn_out/{kernel,bias}``                   ``fcn_out.{kernel,bias}``
+CoST-GCN only:
+``layers_i/{res_bias,tcn_kernel,tcn_bias}`` ``layers.i.<the same name>``
+``layers_i/<Norm>_k/{scale,bias}``          ``layers.i.tcn_norm.…`` (last)
 ==========================================  ===============================
 
 Shift-GCN:
@@ -33,7 +36,9 @@ Norm names: flax numbers a module's norms in creation order. An RT layer
 with a residual 1×1 conv creates the residual norm first, so there
 ``*Norm_0`` is ``res_norm`` and ``*Norm_1`` is ``norm``; elsewhere
 ``*Norm_0`` is ``norm`` (the same sorted-name rule as
-``stgx/models/rtstgcn.py:stream_step``). Shift-GCN's spatial block creates
+``stgx/models/rtstgcn.py:stream_step``). A CoST-GCN layer creates the
+residual's norm (where it has the 1×1 conv), then the graph conv's, then
+the temporal conv's: ``res_norm``, ``norm``, ``tcn_norm`` in that order. Shift-GCN's spatial block creates
 its main per-joint norm before the down-projection's, its temporal block
 the input norm before the output norm, and a unit's only own norm is the
 residual's.
@@ -46,6 +51,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from stgx_torch.models.costgcn import CoStgcn
 from stgx_torch.models.rtstgcn import RtStgcn
 from stgx_torch.models.shiftgcn import (
     ShiftGcn,
@@ -59,6 +65,14 @@ __all__ = ["from_jax_params", "to_jax_params"]
 _SHIFT_MODULES = (ShiftGcn, ShiftUnit, SpatialShiftBlock, TemporalShiftBlock)
 
 _NORMS = ("LayerNorm", "BatchNorm")
+
+# a layer's own leaves, and its norm roles in flax's creation order with and
+# without the residual 1×1 conv
+_LAYERS = {
+    RtStgcn: (("res_kernel",), ("res_norm", "norm"), ("norm",)),
+    CoStgcn: (("res_kernel", "res_bias", "tcn_kernel", "tcn_bias"),
+              ("res_norm", "norm", "tcn_norm"), ("norm", "tcn_norm")),
+}
 
 
 def _flat(tree, prefix=""):
@@ -82,7 +96,7 @@ def from_jax_params(params, model) -> dict[str, torch.Tensor]:
     """``{"params": {...}}`` with numpy leaves → the port's ``state_dict``
     for ``model`` (tensors on its device, in its parameter type), ready for
     ``model.load_state_dict(sd, strict=True)``. ``model`` is an RT-ST-GCN,
-    a Shift-GCN or one of Shift-GCN's units or blocks."""
+    a CoST-GCN, a Shift-GCN or one of Shift-GCN's units or blocks."""
     p = params["params"]
     ref = next(model.parameters())
     out = {}
@@ -94,37 +108,42 @@ def from_jax_params(params, model) -> dict[str, torch.Tensor]:
     if isinstance(model, _SHIFT_MODULES):
         _shift(p, put, "", type(model))
     else:
-        _rtstgcn(p, put)
+        _layered(p, put, type(model))
     return out
 
 
 def to_jax_params(model) -> dict:
-    """The inverse of :func:`from_jax_params` for an RT-ST-GCN: its
-    parameters as the JAX package's ``{"params": {...}}`` tree of float32
-    numpy arrays."""
-    if not isinstance(model, RtStgcn):
-        raise TypeError(f"to_jax_params takes an RT-ST-GCN, not {type(model).__name__}")
+    """The inverse of :func:`from_jax_params` for an RT-ST-GCN or a
+    CoST-GCN: its parameters as the JAX package's ``{"params": {...}}`` tree
+    of float32 numpy arrays."""
+    if type(model) not in _LAYERS:
+        raise TypeError("to_jax_params takes an RT-ST-GCN or a CoST-GCN, not "
+                        f"{type(model).__name__}")
+
+    def array(t):
+        return t.detach().float().cpu().numpy()
 
     def leaves(module):
-        return {k: v.detach().float().cpu().numpy() for k, v in module.named_parameters()}
+        return {k: array(v) for k, v in module.named_parameters()}
 
+    own, with_res, without_res = _LAYERS[type(model)]
     kind = type(model.norm_in).__name__  # "LayerNorm" or "BatchNorm"
     p = {name: leaves(getattr(model, name)) for name in ("norm_in", "fcn_in", "fcn_out")}
     if model.importance:
-        p["edge_importance"] = model.edge_importance.detach().float().cpu().numpy()
+        p["edge_importance"] = array(model.edge_importance)
     for i, layer in enumerate(model.layers):
         lp = {"GraphConv_0": leaves(layer.gcn)}
-        norms = ["norm"]
-        if hasattr(layer, "res_kernel"):
-            lp["res_kernel"] = layer.res_kernel.detach().float().cpu().numpy()
-            norms = ["res_norm", "norm"]  # flax's creation order
-        for k, role in enumerate(norms):
+        lp.update({k: array(getattr(layer, k)) for k in own if hasattr(layer, k)})
+        norms = with_res if hasattr(layer, "res_kernel") else without_res
+        for k, role in enumerate(norms):  # flax's creation order
             lp[f"{kind}_{k}"] = leaves(getattr(layer, role))
         p[f"layers_{i}"] = lp
     return {"params": p}
 
 
-def _rtstgcn(p, put):
+def _layered(p, put, cls):
+    """The flax tree of an RT-ST-GCN or a CoST-GCN (``cls``) into port keys."""
+    own, with_res, without_res = _LAYERS[cls]
     for name, sub in p.items():
         if name == "edge_importance":
             put(name, sub)
@@ -133,11 +152,11 @@ def _rtstgcn(p, put):
                 put(f"{name}.{leaf}", v)
         elif name.startswith("layers_"):
             i = int(name.removeprefix("layers_"))
-            roles = ["res_norm", "norm"] if "res_kernel" in sub else ["norm"]
+            roles = with_res if "res_kernel" in sub else without_res
             rename = dict(_norm_roles(name, sub, roles), GraphConv_0="gcn")
             for k, v in sub.items():
-                if k == "res_kernel":
-                    put(f"layers.{i}.res_kernel", v)
+                if k in own:
+                    put(f"layers.{i}.{k}", v)
                 elif k in rename:
                     for leaf, lv in _flat(v):
                         put(f"layers.{i}.{rename[k]}.{leaf}", lv)

@@ -148,7 +148,7 @@ def test_a_tree_of_another_architecture_does_not_load():
         ti.load_reference_into(wider, jax.tree.map(np.asarray, params))
 
 
-@pytest.mark.parametrize("name", ["st-gcn", "co-st-gcn", "ms-tcn", "ms-gcn", "aa-gcn"])
+@pytest.mark.parametrize("name", ["st-gcn", "ms-tcn", "ms-gcn", "aa-gcn"])
 def test_families_not_ported_raise(name):
     _, _, tm, _ = _models("LayerNorm")
     for call in (lambda: ti.import_reference_state_dict({}, tm, name),
