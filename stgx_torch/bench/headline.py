@@ -76,37 +76,47 @@ LATENCY_NOTE = (
 
 
 class StaticStream:
-    """:func:`stream_step` at B = 1 over static buffers, the body a CUDA graph
-    captures (:func:`capture`).
+    """A streaming cell at B = 1 over static buffers, the body a CUDA graph
+    captures (:func:`capture`): :func:`stream_step` by default, or any
+    ``step(state, x_t) -> (logits, new_state)`` from ``state`` (a list of
+    per-layer dicts of tensors), such as the int8 cells
+    (:func:`stgx_torch.bench.streaming.measure_quant`).
 
     A :meth:`step` reads frame ``cursor`` of ``frames`` ``(L, V, C)``, runs
-    the streaming step on the static FIFO state, writes the new FIFOs back
-    into it (``stream_step`` returns new tensors), stores the logits in row
-    ``cursor`` of ``logits`` ``(L, classes)`` and advances the cursor, all
-    on the device, with no host work and no host-to-device copy.
-    :meth:`reset` empties the FIFOs and rewinds the cursor; at most ``L``
-    steps follow a reset.
+    the cell on the static state, writes the new state back into it (the
+    cells return new tensors), stores the logits in row ``cursor`` of
+    ``logits`` ``(L, classes)`` and advances the cursor, all on the device,
+    with no host work and no host-to-device copy. :meth:`reset` empties the
+    state and rewinds the cursor; at most ``L`` steps follow a reset.
     """
 
-    def __init__(self, model, frames: torch.Tensor):
+    def __init__(self, model, frames: torch.Tensor, step=None, state=None):
         self.model, self.frames = model, frames
         self.cursor = torch.zeros(1, dtype=torch.long, device=frames.device)
-        self.state = init_stream_state(model, batch=1, dtype=frames.dtype)
-        self.logits = torch.zeros((frames.shape[0], model.fcn_out.kernel.shape[1]),
+        if step is None:
+            step = lambda st, x_t: stream_step(model, st, x_t)  # noqa: E731
+            state = init_stream_state(model, batch=1, dtype=frames.dtype)
+        self.cell, self.state = step, state
+        classifier = model.fcn_out if hasattr(model, "fcn_out") else model.fc  # Shift-GCN: fc
+        self.logits = torch.zeros((frames.shape[0], classifier.kernel.shape[1]),
                                   dtype=frames.dtype, device=frames.device)
+
+    def _tensors(self, state):
+        return [layer[k] for layer in state for k in sorted(layer)]
 
     def step(self):
         x_t = self.frames.index_select(0, self.cursor)  # (1, V, C)
-        logits, new_state = stream_step(self.model, self.state, x_t)
-        for old, new in zip(self.state, new_state):
-            old["fifo"].copy_(new["fifo"])
-        self.logits.index_copy_(0, self.cursor, logits)
+        logits, new_state = self.cell(self.state, x_t)
+        for old, new in zip(self._tensors(self.state), self._tensors(new_state)):
+            if new is not old:
+                old.copy_(new)
+        self.logits.index_copy_(0, self.cursor, logits.to(self.logits.dtype))
         self.cursor.add_(1)
 
     def reset(self):
         self.cursor.zero_()
-        for s in self.state:
-            s["fifo"].zero_()
+        for t in self._tensors(self.state):
+            t.zero_()
         self.logits.zero_()
 
 

@@ -18,12 +18,18 @@ raises.
 :func:`run_streaming_benchmark` is the CLI's ``benchmark`` command (the
 port of the JAX function of that name): the configured model's cell over
 the first validation trial, with ``latency.csv``, ``model-size.csv`` and
-``accuracy.csv`` written and one JSON line printed. A run the config puts
-on the CPU (``job.platform: "cpu"``) times its steps with the host's clock
-and says so (``"clock": "host"``). The JAX package's int8 cells and its
-scan-slope view are not ported yet (ROADMAP.md, queue 1); the port's
-dispatch-free view is the CUDA-graph replay of
-:mod:`stgx_torch.bench.headline`.
+``accuracy.csv`` written and one JSON line printed, and for RT-ST-GCN and
+CoST-GCN the int8 rows (:mod:`stgx_torch.bench.quant`). A run the config
+puts on the CPU (``job.platform: "cpu"``) times its steps with the host's
+clock and says so (``"clock": "host"``).
+
+The JAX package's on-chip view (a scan's per-frame slope) is, in the port,
+the cell captured in a CUDA graph and replayed frame after frame
+(:func:`graph_frame_ms`, :func:`measure_quant`; the capture machinery of
+:mod:`stgx_torch.bench.headline`): the device's time for one frame after
+another, host dispatch taken out. It needs the card: on the CPU the
+``*_onchip_ms`` figures are not measured (empty in the CSVs, null in the
+line).
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ import time
 import numpy as np
 import torch
 
+from stgx_torch.bench.quant import QUANT_MODELS, calibrate_scales, quant_mode, quantized_size_bytes
 from stgx_torch.models import costgcn, rtstgcn
 
 __all__ = ["measure_stream_latency", "timed_steps", "init_window_state",
-           "window_step", "streaming_fns", "run_streaming_benchmark"]
+           "window_step", "streaming_fns", "run_streaming_benchmark", "graph_frame_ms",
+           "measure_quant"]
 
 # the continual families and the modules of their FIFO cells
 _CELLS = {rtstgcn.RtStgcn: rtstgcn, costgcn.CoStgcn: costgcn}
@@ -102,15 +110,15 @@ def timed_steps(model, state, frames, warmup: int = 20, step=None):
     return torch.stack(outs, dim=1), step_ms
 
 
-def measure_stream_latency(model, frames, warmup: int = 20, window: int = 50):
+def measure_stream_latency(model, frames, warmup: int = 20, window: int = 50, cell=None):
     """Per-frame latency stats over one ``(L, V, C)`` capture at B = 1,
     through the model's FIFO cell or, for a window model, the window cell
-    of ``window`` frames.
+    of ``window`` frames, or through ``cell``, a ``(state, step)`` pair.
 
     Returns ``(mean_ms, p50_ms, p99_ms, logits (L, classes))``.
     """
     frames = frames[:, None]  # (L, 1, V, C)
-    state, step = _cell(model, frames, window)
+    state, step = cell or _cell(model, frames, window)
     logits, step_ms = timed_steps(model, state, frames, warmup, step)
     return _stats(step_ms, logits)
 
@@ -134,11 +142,11 @@ def _stats(step_ms, logits):
     )
 
 
-def host_stream_latency(model, frames, warmup: int = 20, window: int = 50):
+def host_stream_latency(model, frames, warmup: int = 20, window: int = 50, cell=None):
     """:func:`measure_stream_latency` for a model on the CPU, each step timed
     with the host's clock (a CPU run: no device figure)."""
     frames = frames[:, None]
-    state, step = _cell(model, frames, window)
+    state, step = cell or _cell(model, frames, window)
     warm_state = state
     for _ in range(warmup):
         _, warm_state = step(model, warm_state, frames[0])
@@ -149,6 +157,56 @@ def host_stream_latency(model, frames, warmup: int = 20, window: int = 50):
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(logits)
     return _stats(np.asarray(times), torch.stack(outs, dim=1))
+
+
+def graph_frame_ms(model, frames, repeats: int = 3, step=None, state=None,
+                   window: int = 50) -> float:
+    """Per-frame device time of a B = 1 cell over ``frames`` ``(L, V, C)``:
+    the step captured once in a CUDA graph and replayed once per frame
+    (:class:`stgx_torch.bench.headline.StaticStream`), the least of
+    ``repeats`` replays of all L frames. The model's plain cell (its FIFO
+    cell, or the window cell of ``window`` frames) unless ``step(state,
+    x_t)`` and ``state`` are given. A device measurement: a model on the
+    CPU raises."""
+    from stgx_torch.bench.headline import StaticStream, capture, replay_ms
+
+    if frames.device.type != "cuda":
+        raise RuntimeError("the graph replay is a device measurement; frames are on "
+                           f"{frames.device}")
+    if step is None:
+        fns = streaming_fns(model)
+        if fns is None:  # the window cell: its buffer as a one-layer state
+            state = [init_window_state(model, 1, window, frames.dtype)]
+
+            def step(st, x_t):
+                logits, buf = window_step(model, st[0], x_t)
+                return logits, [buf]
+        else:
+            init, fn = fns
+            state = init(model, batch=1, dtype=frames.dtype)
+            step = lambda st, x_t: fn(model, st, x_t)  # noqa: E731
+    stream = StaticStream(model, frames, step=step, state=state)
+    graph = capture(stream)
+    n = frames.shape[0]
+    return min(replay_ms(graph, stream, n) / n for _ in range(repeats))
+
+
+def measure_quant(model, name, qparams, frames, repeats: int = 3, mode: str = "dynamic",
+                  scales=None, state_dtype=None) -> float:
+    """Per-frame device time (ms) of the B = 1 int8 cell of ``name`` in one
+    quantization ``mode`` (``"dynamic"``, ``"static"`` with ``scales``,
+    ``"w8"``) and FIFO ``state_dtype`` (float32 if None; int8 needs
+    ``"static"``): the port of ``measure_quant_onchip``. The cell is
+    captured and replayed (:func:`graph_frame_ms`) inside the
+    ``quant_mode`` context, which holds the static scales' device tensors
+    the graph reads."""
+    _, qstep_fn, qinit = QUANT_MODELS[name]
+    frames = torch.as_tensor(frames, dtype=torch.float32).to(model.A.device)
+    with quant_mode(mode, scales):
+        state = qinit(model, batch=1, dtype=state_dtype or torch.float32)
+        return graph_frame_ms(model, frames, repeats,
+                              step=lambda st, x_t: qstep_fn(model, qparams, st, x_t),
+                              state=state)
 
 
 def _load_weights(cfg, model, name, out_dir):
@@ -196,11 +254,42 @@ def _shapes(tree, prefix=""):
             yield f"{prefix}{k}", np.shape(v)
 
 
+def _int8_rows(model, name, frames, top1_fp32, labels, measure) -> dict:
+    """The JAX benchmark's int8 rows for a family of ``QUANT_MODELS``: the
+    dynamic cell's eager p50 and its predictions (top-1 and agreement with
+    the fp32 cell), the quantized size and, on the card, the graph replays
+    of the dynamic, calibrated-static and w8 cells (calibrated on the same
+    frames, as the JAX benchmark does); on the CPU those are not measured
+    (None)."""
+    quantize, qstep_fn, qinit = QUANT_MODELS[name]
+    qparams = quantize(model)
+    cell = (qinit(model, batch=1), lambda m, st, x_t: qstep_fn(m, qparams, st, x_t))
+    _, q_p50, _, q_logits = measure(model, frames, cell=cell)
+    q_top1 = q_logits.argmax(-1)
+    onchip = {"int8_onchip_ms": None, "int8_static_onchip_ms": None, "w8_onchip_ms": None}
+    if frames.device.type == "cuda":
+        onchip["int8_onchip_ms"] = measure_quant(model, name, qparams, frames, mode="dynamic")
+        scales = calibrate_scales(model, qparams, frames, name)
+        onchip["int8_static_onchip_ms"] = measure_quant(model, name, qparams, frames,
+                                                        mode="static", scales=scales)
+        onchip["w8_onchip_ms"] = measure_quant(model, name, qparams, frames, mode="w8")
+    return {
+        "int8_p50_ms": q_p50,
+        **onchip,
+        "int8_top1": float((q_top1 == labels).mean()),
+        "int8_size_mb": quantized_size_bytes(qparams) / 1e6,
+        "int8_agrees_fp32": float((q_top1 == top1_fp32).mean()),
+    }
+
+
 def run_streaming_benchmark(cfg, device=None) -> int:
     """CLI entry: stream the first validation trial (up to 256 frames)
     through the configured model's cell on ``device`` (``cuda`` if None) and
-    write ``latency.csv``, ``model-size.csv`` and ``accuracy.csv`` under
-    ``processor.out``; prints one JSON line."""
+    write ``latency.csv``, ``model-size.csv`` (the JAX package's columns)
+    and ``accuracy.csv`` under ``processor.out``; prints one JSON line. For
+    RT-ST-GCN and CoST-GCN the int8 rows follow the fp32 ones
+    (:func:`_int8_rows`), whatever ``processor.quantize`` says, as in the
+    JAX benchmark."""
     from stgx_torch import default_device
     from stgx_torch.config import build_model
     from stgx_torch.data import build_datasets, load_actions
@@ -218,16 +307,26 @@ def run_streaming_benchmark(cfg, device=None) -> int:
     n_frames = min(len(x), 256)
     frames = torch.as_tensor(x[:n_frames], dtype=torch.float32, device=device)
     window = cfg["arch"].get("receptive_field", 50)
-    measure = measure_stream_latency if device.type == "cuda" else host_stream_latency
+    on_card = device.type == "cuda"
+    measure = measure_stream_latency if on_card else host_stream_latency
     mean_ms, p50_ms, p99_ms, logits = measure(model, frames, window=window)
-    top1 = float((logits.argmax(-1) == y[:n_frames]).mean())
+    top1 = logits.argmax(-1)
+    acc = float((top1 == y[:n_frames]).mean())
     size_mb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
+    # the dispatch-free view: the graph replay
+    onchip_ms = graph_frame_ms(model, frames, window=window) if on_card else None
+    int8 = (_int8_rows(model, name, frames, top1, y[:n_frames], measure)
+            if name in QUANT_MODELS else {})
 
     for fname, header, row in (
-        ("latency.csv", ["mean_ms", "p50_ms", "p99_ms", "frames"],
-         [mean_ms, p50_ms, p99_ms, n_frames]),
-        ("model-size.csv", ["fp32_mb"], [size_mb]),
-        ("accuracy.csv", ["top1", "frames"], [top1, n_frames]),
+        ("latency.csv",
+         ["mean_ms", "p50_ms", "p99_ms", "onchip_ms", "frames", "int8_p50_ms",
+          "int8_onchip_ms", "int8_static_onchip_ms", "w8_onchip_ms"],
+         [mean_ms, p50_ms, p99_ms, onchip_ms, n_frames, int8.get("int8_p50_ms"),
+          int8.get("int8_onchip_ms"), int8.get("int8_static_onchip_ms"),
+          int8.get("w8_onchip_ms")]),
+        ("model-size.csv", ["fp32_mb", "int8_mb"], [size_mb, int8.get("int8_size_mb")]),
+        ("accuracy.csv", ["top1", "frames"], [acc, n_frames]),
     ):
         with open(os.path.join(out_dir, fname), "w", newline="") as f:
             w = csv.writer(f)
@@ -238,10 +337,12 @@ def run_streaming_benchmark(cfg, device=None) -> int:
         "latency_ms_per_frame": mean_ms,
         "p50_ms": p50_ms,
         "p99_ms": p99_ms,
-        "top1": top1,
+        "onchip_ms": onchip_ms,
+        "top1": acc,
         "model_size_mb": size_mb,
+        **int8,
         "frames": n_frames,
-        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "clock": "cuda_events" if device.type == "cuda" else "host",
+        "device": torch.cuda.get_device_name(device) if on_card else "cpu",
+        "clock": "cuda_events" if on_card else "host",
     }))
     return 0

@@ -12,7 +12,10 @@ from the config, runs, and writes the JAX CLI's artifacts under
   ``optimizer.checkpoint_indices`` epoch and ``final`` after the last;
 * ``test``: ``macro-F1@k.csv``, ``edit.csv``, ``confusion-matrix.csv``,
   ``accuracy.csv`` and the segmentation dumps;
-* ``benchmark``: :func:`stgx_torch.bench.streaming.run_streaming_benchmark`.
+* ``benchmark``: :func:`stgx_torch.bench.streaming.run_streaming_benchmark`,
+  with the int8 rows for RT-ST-GCN and CoST-GCN; as in the JAX CLI it does
+  not read ``processor.quantize`` or ``processor.state_dtype`` (only
+  ``export`` does).
 
 Resume rules are the JAX CLI's: ``processor.checkpoint`` resumes training
 after its epoch; ``processor.torch_checkpoint`` starts from a reference
@@ -25,7 +28,6 @@ for a ``torch.profiler`` trace of the first epoch trained.
 The commands run on the CUDA device, or on the CPU when the config's
 ``job.platform`` is ``"cpu"`` (any other value is refused). Not ported yet,
 each refused with its place in ROADMAP.md's queue 1: ``export`` (item 9),
-a ``benchmark`` of the int8 cell (``processor.quantize``, item 6),
 ``job.distributed`` and meshes past one device (item 10), Shift-GCN++'s
 teacher grafting (item 8); and an ``arch.gcn_impl`` other than the
 hand-written kernels, since the port has no other graph-conv route on the
@@ -75,9 +77,6 @@ def _refuse_unported(command, cfg) -> None:
 
     if command == "export":
         refuse("export of the streaming cell", 9)
-    if command == "benchmark" and (cfg["processor"].get("quantize")
-                                   or cfg["processor"].get("state_dtype")):
-        refuse("the int8 streaming cell (processor.quantize, processor.state_dtype)", 6)
     mesh = job.get("mesh") or {}
     if job.get("distributed") or any((mesh.get(k) or 1) > 1 for k in ("data", "seq", "model")):
         refuse("multi-device training (job.distributed, job.mesh)", 10)

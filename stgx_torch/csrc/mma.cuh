@@ -1,7 +1,8 @@
 // Tensor-core and async-copy helpers of the graph-conv kernels
-// (gcn_core.cuh, gcn_grads.cuh): cp.async staging with zero fill, the warp
-// matrix products mma.sync m16n8k8 (TF32) and m16n8k16 (bf16), and the
-// fragment loaders for tiles in shared memory.
+// (gcn_core.cuh, gcn_grads.cuh) and of int8_gemm.cu: cp.async staging with
+// zero fill, the warp matrix products mma.sync m16n8k8 (TF32), m16n8k16
+// (bf16) and m16n8k32 (int8), and the fragment loaders for tiles in shared
+// memory.
 //
 // Two routes, one interface (Op::kK is the depth of one step, Op::A / Op::B
 // the fragments, Op::mma adds a 16 x 8 product into an fp32 accumulator):
@@ -142,6 +143,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// int8 operands, int32 sums (int8_gemm.cu): exact, so the order of the adds
+// does not matter. Fragments of lane (g = lane / 4, t = lane % 4), four
+// int8 values a register, lowest k in the lowest byte: a[0] row g, k 4t..4t+3;
+// a[1] row g + 8, the same k; a[2], a[3] the same rows, k 16 + 4t..;
+// b[0] column g, k 4t..4t+3; b[1] column g, k 16 + 4t.. .
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

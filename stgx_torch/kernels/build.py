@@ -129,6 +129,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stgx_temporal_shift.restype = i
     lib.stgx_temporal_shift_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
     lib.stgx_temporal_shift_bwd.restype = i
+    lib.stgx_int8_gemm.argtypes = [p, ll, p, ll, p, p, p, p, p, i, i, i, i, i, p]
+    lib.stgx_int8_gemm.restype = i
+    lib.stgx_w8_gemm.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, i, i, p]
+    lib.stgx_w8_gemm.restype = i
     lib.stgx_error_string.argtypes = [i]
     lib.stgx_error_string.restype = ctypes.c_char_p
     return lib

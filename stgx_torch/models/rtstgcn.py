@@ -50,6 +50,7 @@ __all__ = [
     "init_stream_state",
     "stream_step",
     "stream_sequence",
+    "frame_norm",
 ]
 
 
@@ -213,15 +214,22 @@ def init_stream_state(model: RtStgcn, batch: int = 1, dtype=None):
     ]
 
 
-def _stream_norm(norm: nn.Module, x_t, per_joint: bool = False):
-    """A norm on one frame ``(B, V, C)`` with stats over that frame only."""
+def frame_norm(kind: str, scale, bias, x_t, per_joint: bool = False, eps: float = 1e-5):
+    """Norm ``kind`` (``"LayerNorm"`` or ``"BatchNorm"``) with parameters
+    ``scale`` and ``bias`` on one frame ``(B, V, C)``, stats over that frame
+    only (the JAX package's ``_stream_norm``)."""
     x = x_t[:, None]
-    if isinstance(norm, LayerNorm):
-        y = layer_norm(x, norm.scale, norm.bias, norm.eps)
+    if kind == "LayerNorm":
+        y = layer_norm(x, scale, bias, eps)
     else:
-        y = batch_norm(x, norm.scale, norm.bias,
-                       axes=(0, 1) if per_joint else (0, 1, 2), eps=norm.eps)
+        y = batch_norm(x, scale, bias, axes=(0, 1) if per_joint else (0, 1, 2), eps=eps)
     return y[:, 0]
+
+
+def _stream_norm(norm: nn.Module, x_t, per_joint: bool = False):
+    """A norm module on one frame ``(B, V, C)`` with stats over that frame only."""
+    kind = "LayerNorm" if isinstance(norm, LayerNorm) else "BatchNorm"
+    return frame_norm(kind, norm.scale, norm.bias, x_t, per_joint, norm.eps)
 
 
 @torch.no_grad()

@@ -45,7 +45,10 @@ def causal_accumulate(x, kernel_size: int, stride: int):
 def init_accumulator_state(batch, num_joints, channels, kernel_size, stride,
                            dtype=torch.float32, device=None):
     """Zero carry for the streaming accumulator: a shift FIFO of the last
-    ``(K−1)·s + 1`` frames, newest at slot ``depth − 1``."""
+    ``(K−1)·s + 1`` frames, newest at slot ``depth − 1``, in ``dtype``:
+    float32 or bfloat16 for the plain cells, and also int8 for the int8
+    cell, whose FIFO holds each frame's codes under a calibrated scale
+    (``stgx_torch.bench.quant._quant_acc_step``)."""
     k = kernel_size // stride
     depth = (k - 1) * stride + 1
     return {

@@ -102,7 +102,7 @@ def test_build_compiles_each_source_for_sm90a_and_links_one_library(fake_nvcc):
     assert lib.is_file()
     calls = fake_nvcc.read_text().splitlines()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert sources == ["gcn_core.cu", "gcn_grads.cu", "rt_fused.cu",
+    assert sources == ["gcn_core.cu", "gcn_grads.cu", "int8_gemm.cu", "rt_fused.cu",
                        "rt_fused_bwd.cu", "temporal_shift.cu", "window_sum.cu"]
     compiles = [c for c in calls if " -c " in c]
     assert sorted(Path(c.split(" -c ")[1].split()[0]).name for c in compiles) == sources
@@ -127,7 +127,11 @@ def test_kernel_sources_are_plain_c_with_their_notes():
         text = src.read_text()
         assert "torch/extension.h" not in text
         assert 'extern "C"' in text
-        assert "Replaces stgx/ops/" in text and "Bound on the H100" in text
+        # the int8 products replace XLA products of the quantized cells, the
+        # other sources the TPU kernels under stgx/ops
+        replaces = ("Replaces stgx/bench/quant.py:199" if src.name == "int8_gemm.cu"
+                    else "Replaces stgx/ops/")
+        assert replaces in text and "Bound on the H100" in text
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
