@@ -95,13 +95,16 @@ step. Each phase prints its seconds.
 The int8 cells follow (``stgx_torch.bench.quant``): the two int8 products
 (``int8_gemm``, ``w8_gemm``) against their plain versions at every product
 site of RT9's and CoST9's cells at three stream counts, CoST at Gamma = 69's
-temporal-conv sites, ragged shapes and a strided FIFO view (int8 bit for bit,
-w8 within TOL_FP32, both repeatable), timed beside their bounds, plain
-versions and yardsticks; the cells of RT9, CoST9, RT69 and CoST69 in dynamic,
-static and w8 modes and fp32, bf16 and int8 state (one product launch a site
-a step, equal to the cell on the plain versions, tracking the fp32 cell at
-the JAX tests' bounds; the drift check with int8 state; int8 state a quarter
-of fp32's bytes); ``serving.py --quant int8-static --state-dtype ...``
+temporal-conv sites, ragged shapes and a strided FIFO view, in every form of
+the left operand (int8 codes; fp32 and bf16 quantized inside the product,
+bf16 where the tma route takes the shape; the temporal convs' FIFO taps over int8, fp32 and bf16 state) and on the
+route each shape takes (tma: wgmma fed by TMA; staged: mma.sync / FMAs),
+int8 bit for bit, w8 within TOL_FP32, both repeatable, timed beside their
+bounds, plain versions and yardsticks; the cells of RT9, CoST9, RT69 and
+CoST69 in dynamic, static and w8 modes and fp32, bf16 and int8 state (one
+product launch a site a step, no tap stack in CoST-GCN's cells, equal to the
+cell on the plain versions, tracking the fp32 cell at the JAX tests' bounds;
+the drift check with int8 state; int8 state a quarter of fp32's bytes); ``serving.py --quant int8-static --state-dtype ...``
 beside the plain fp32 and bf16 cells at the same stream counts;
 ``quant_ab``; and the CLI's ``benchmark`` with ``processor.quantize``.
 
@@ -166,6 +169,10 @@ SLEEP_CYCLES = 60_000_000  # device_ms: ~30 ms of a sleeping kernel, ahead of th
 # step of RT9's and of CoST9's cell at B_STREAM streams.
 INT8_KERNEL_B = {CONFIG: (1, B_STREAM, 4096), CO_CONFIG: (1, B_STREAM, 1024)}
 RAGGED_INT8 = [(1, 3, 52), (37, 40, 52), (1, 17664, 256), (130, 100, 300)]
+# the large shapes the kernels line lists: RT9's layers 6-8 graph conv at
+# B = 4096 and CoST69's deepest temporal conv at B = 64
+LARGE_INT8 = [(102400, 768, 256), (1600, 17664, 256)]
+QUANT_CHECK = 1 << 24  # values a scale of the quantize-vs-division check
 # the cell phase: (config, tag); streams x frames; (mode, state type) runs
 INT8_CONFIGS = [(CONFIG, "RT9"), (CO_CONFIG, "CoST9"), (CONFIG_69, "RT69"),
                 (CO_CONFIG_69, "CoST69")]
@@ -380,10 +387,16 @@ def all_counts():
     return {**counts(), **{name: fn.launches for name, fn in _int8_wrappers().items()}}
 
 
+ROUTES_SEEN = {}  # the int8 products' launches by route, summed over the resets
+
+
 def reset_all_counts():
     reset_counts()
+    for key, n in route_counts().items():
+        ROUTES_SEEN[key] = ROUTES_SEEN.get(key, 0) + n
     for fn in _int8_wrappers().values():
         fn.launches = 0
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def phase_done(name: str, t0: float) -> None:
@@ -2186,9 +2199,11 @@ def headline_phase(smi):
 
 
 def quant_sites(config):
-    """``(name, model, [(site, per_joint, K, N)])`` of the int8 cell of the
-    model at ``config``: its product sites in step order, the weight's
-    shape, and whether the rows are B x V (else B, the classifier)."""
+    """``(name, model, [(site, per_joint, K, N, taps)])`` of the int8 cell of
+    the model at ``config``: its product sites in step order, the weight's
+    shape, whether the rows are B x V (else B, the classifier), and for
+    CoST-GCN's temporal convs the ``(gamma, dilation)`` of the FIFO whose
+    taps the product reads (else None)."""
     from stgx_torch.bench.quant import QUANT_MODELS
     from stgx_torch.config import build_model
 
@@ -2196,48 +2211,65 @@ def quant_sites(config):
     name = cfg["processor"]["model"]
     model = build_model(cfg, NUM_CLASSES)
     q = QUANT_MODELS[name][0](model)
-    sites = [("fcn_in", True, *q["fcn_in"][0].shape)]
+    sites = [("fcn_in", True, *q["fcn_in"][0].shape, None)]
     for i, lq in enumerate(q["layers"]):
-        sites += [(f"layers.{i}.{key}", True, *lq[key][0].shape)
+        sites += [(f"layers.{i}.{key}", True, *lq[key][0].shape,
+                   (model.kernel, model.dilation[i]) if key == "tcn" else None)
                   for key in ("res", "gcn", "tcn") if key in lq]
-    sites.append(("fcn_out", False, *q["fcn_out"][0].shape))
+    sites.append(("fcn_out", False, *q["fcn_out"][0].shape, None))
     return name, model, sites
+
+
+def route_counts():
+    """Launches by route of the two int8 products."""
+    return {f"{name}.{r}": n for name, fn in _int8_wrappers().items()
+            for r, n in fn.route_launches.items()}
 
 
 def int8_kernel_phase(recs):
     """int8_gemm and w8_gemm against their plain versions at every product
     site of RT9's and CoST9's int8 cells (INT8_KERNEL_B), CoST at
-    Gamma = 69's temporal-conv sites at B_STREAM and RAGGED_INT8, each also
-    with its left operand a strided FIFO view (a slot of an (M, 3, K) FIFO,
-    row stride 3K): int8 with torch.equal, w8 within TOL_FP32; both repeat
-    bit for bit. Device times of the kernels, the plain versions, and the
-    yardsticks (torch._int_mm where it takes the shape; torch.matmul on a
-    prepared fp32 weight) beside the bounds (int8 at the int8 tensor-core
-    peak, w8 at the fp32 FMA peak). The kernels line takes the sums over one
-    step of RT9's and of CoST9's cell at B_STREAM streams."""
+    Gamma = 69's temporal-conv sites at B_STREAM and RAGGED_INT8, in every
+    form of the left operand (after a check of the quantize inside the
+    product against PyTorch's division on 8 x QUANT_CHECK values): int8 codes
+    (form a), contiguous and as a slot
+    of an (M, 3, K) FIFO (row stride 3K); fp32 and bf16 quantized inside the
+    product (form b, fp32 also on exact .5 ties of x / s and past the clamp,
+    bf16 only where the tma route takes the shape; w8 takes them as they
+    are); and at the temporal-conv
+    sites the FIFO's taps (form c) over int8, fp32 and bf16 state. int8 with
+    torch.equal, w8 within TOL_FP32; every one repeats bit for bit. Each
+    shape prints the route its launches took. Device times of the kernels
+    (form a and form b fp32 for int8, fp32 for w8; form c at the tcn sites),
+    the plain versions, and the yardsticks (torch._int_mm where it takes the
+    shape; torch.matmul on a prepared fp32 weight) beside the bounds (int8
+    at the int8 tensor-core peak, w8 at the two-pass TF32 one, each at least
+    the bytes). The kernels line takes the sums over one step of RT9's and of
+    CoST9's cell at B_STREAM streams, and lists the shapes of LARGE_INT8."""
     import torch
 
     from stgx_torch.ops.int8_gemm import (
         int8_gemm,
         int8_gemm_plain,
+        tma_ok,
         w8_gemm,
         w8_gemm_plain,
         weight_layout,
     )
 
-    weight = {}  # (M, K, N) -> times one step of the line's cells uses it
+    weight = {}  # (M, K, N, taps) -> times one step of the line's cells uses it
     for config, batches in INT8_KERNEL_B.items():
         _, _, sites = quant_sites(config)
         for b in batches:
-            for _, per_joint, k, n in sites:
-                shape = (b * 25 if per_joint else b, k, n)
+            for _, per_joint, k, n, taps in sites:
+                shape = (b * 25 if per_joint else b, k, n, taps)
                 weight[shape] = weight.get(shape, 0) + (b == B_STREAM)
     _, _, sites69 = quant_sites(CO_CONFIG_69)
-    for site, _, k, n in sites69:
-        if site.endswith(".tcn"):
-            weight.setdefault((B_STREAM * 25, k, n), 0)
-    for shape in RAGGED_INT8:
-        weight.setdefault(shape, 0)
+    for site, _, k, n, taps in sites69:
+        if taps is not None:
+            weight.setdefault((B_STREAM * 25, k, n, taps), 0)
+    for m, k, n in RAGGED_INT8:
+        weight.setdefault((m, k, n, None), 0)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
 
@@ -2245,37 +2277,113 @@ def int8_kernel_phase(recs):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda",
                              dtype=torch.int32).to(torch.int8)
 
-    sums = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_kernel_ms": 0.0,
-                "bound_ms": 0.0, "_tb": 0.0, "_to": 0.0, "max_abs_err": 0.0}
+    # the quantize inside the product against PyTorch's division: codes times
+    # s through an identity weight, over QUANT_CHECK values under each of 8
+    # scales, infinities and quotients past fp32's range among them (outputs
+    # equal exactly when the codes do)
+    eye = weight_layout(torch.eye(64, dtype=torch.int8, device="cuda"))
+    ones = torch.ones(64, device="cuda")
+    differ = 0
+    for _ in range(8):
+        s = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-4
+        xq = torch.randn(QUANT_CHECK // 64, 64, generator=gen, device="cuda") * s * 60
+        xq[0, :4] = torch.tensor([float("inf"), -float("inf"), 3e38, -3e38])
+        differ += int((int8_gemm(xq, eye, s, ones) != int8_gemm_plain(xq, eye, s, ones)).sum())
+    print(f"int8_gemm's quantize against the plain version's: {differ} of {8 * QUANT_CHECK} "
+          "codes differ", flush=True)
+    check(differ == 0, f"int8_gemm: {differ} codes differ from the plain quantize's")
+    del eye, xq
+
+    def held(name, shape, got, again, ref):
+        """int8: the plain version's bits; w8: within TOL_FP32. Both
+        repeatable. Returns the max abs error."""
+        if name == "int8_gemm":
+            check_equal(f"int8_gemm {shape}", got, ref)
+            err = 0.0
+        else:
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            check(bool(torch.isfinite(got).all()) and rel <= TOL_FP32,
+                  f"w8_gemm {shape}: relative error {rel:.3e}")
+        check(torch.equal(got, again), f"{name} {shape}: not repeatable")
+        return err
+
+    keys = ("ms", "plain_ms", "library_ms", "library_kernel_ms", "bound_ms", "_tb", "_to")
+    # each kernel's timed forms (fp32_in_ms, bf16_in_ms, taps_ms) join its
+    # sums as they are measured: a key no shape measured is not printed
+    sums = {k: {**{key: 0.0 for key in keys}, "max_abs_err": 0.0}
             for k in ("int8_gemm", "w8_gemm")}
+    large = {}
     print(f"int8 products at {len(weight)} shapes (M, K, N); the kernels line sums one step "
           f"of RT9's and CoST9's int8 cells at B={B_STREAM}", flush=True)
-    for (m, k, n), w in sorted(weight.items()):
+    for (m, k, n, taps), w in sorted(weight.items(), key=lambda kv: kv[0][:3]):
+        shape = (m, k, n)
         b = weight_layout(codes(k, n))
-        s_a = torch.rand((), generator=gen, device="cuda") * 0.02
+        s_a = torch.rand((), generator=gen, device="cuda") * 0.02 + 0.005
         s_b = torch.rand(n, generator=gen, device="cuda") * 0.02
         bias = torch.randn(n, generator=gen, device="cuda")
         a, fifo = codes(m, k), codes(m, 3, k)
-        x, xfifo = (torch.randn(m, k, generator=gen, device="cuda"),
-                    torch.randn(m, 3, k, generator=gen, device="cuda"))
-        w8_err = 0.0
-        for lhs, xs in ((a, x), (fifo[:, 1], xfifo[:, 1])):
-            got, again = int8_gemm(lhs, b, s_a, s_b, bias), int8_gemm(lhs, b, s_a, s_b, bias)
-            check_equal(f"int8_gemm ({m}, {k}, {n}) row stride {lhs.stride(0)}", got,
-                        int8_gemm_plain(lhs, b, s_a, s_b, bias))
-            check(torch.equal(got, again), f"int8_gemm ({m}, {k}, {n}): not repeatable")
-            got, again = w8_gemm(xs, b, s_b, bias), w8_gemm(xs, b, s_b, bias)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, w8_gemm_plain(xs, b, s_b, bias))
-            check(bool(torch.isfinite(got).all()) and rel <= TOL_FP32,
-                  f"w8_gemm ({m}, {k}, {n}) row stride {xs.stride(0)}: relative error {rel:.3e}")
-            check(torch.equal(got, again), f"w8_gemm ({m}, {k}, {n}): not repeatable")
-            w8_err = max(w8_err, err)
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        x16 = x.to(torch.bfloat16)
+        xfifo = torch.randn(m, 3, k, generator=gen, device="cuda")
+        # exact ties of x / s (s a power of two) and codes past the clamp
+        s_tie = torch.full((), 2.0 ** -7, device="cuda")
+        ties = (torch.randint(-140, 140, (m, k), generator=gen, device="cuda") + 0.5) * s_tie
+        forms = {  # name -> [(label, args, kwargs)]
+            "int8_gemm": [("codes", (a,), {}), ("codes, row stride 3K", (fifo[:, 1],), {}),
+                          ("fp32", (x * 0.3,), {})],
+            "w8_gemm": [("fp32", (x,), {}), ("fp32, row stride 3K", (xfifo[:, 1],), {})],
+        }
+        bf16_ok = tma_ok(x16, b, n)  # a bf16 operand takes the tma route only
+        if bf16_ok:
+            forms["int8_gemm"].append(("bf16", (x16 * 0.3,), {}))
+            forms["w8_gemm"].append(("bf16", (x16,), {}))
+        tfifo = None
+        if taps is not None:  # the FIFO (depth, B, V, C) of the site's taps
+            gamma, d = taps
+            c = k // gamma
+            depth = (gamma - 1) * d + 1
+            tfifo = {"int8": codes(depth, m // 25, 25, c),
+                     "fp32": torch.randn(depth, m // 25, 25, c, generator=gen, device="cuda")}
+            tfifo["bf16"] = tfifo["fp32"].to(torch.bfloat16)
+            for sd, f in tfifo.items():
+                forms["int8_gemm"].append((f"taps {sd} state", (f if sd == "int8" else f * 0.3,),
+                                           {"taps": taps}))
+                if sd != "int8":
+                    forms["w8_gemm"].append((f"taps {sd} state", (f,), {"taps": taps}))
+        errs = {"int8_gemm": 0.0, "w8_gemm": 0.0}
+        routes = {}
+        got, again = int8_gemm(ties, b, s_tie, s_b, bias), int8_gemm(ties, b, s_tie, s_b, bias)
+        held("int8_gemm", f"{shape} fp32 ties", got, again,
+             int8_gemm_plain(ties, b, s_tie, s_b, bias))
+        for name, fn, plain in (("int8_gemm", int8_gemm, int8_gemm_plain),
+                                ("w8_gemm", w8_gemm, w8_gemm_plain)):
+            lead = (s_a,) if name == "int8_gemm" else ()
+            for label, args, kw in forms[name]:
+                before = route_counts()
+                got = fn(args[0], b, *lead, s_b, bias, **kw)
+                again = fn(args[0], b, *lead, s_b, bias, **kw)
+                took = [r for r, v in diff(route_counts(), before).items() if v]
+                routes[f"{name} {label}"] = took[0].split(".")[1]
+                ref = plain(args[0], b, *lead, s_b, bias, **kw)
+                errs[name] = max(errs[name], held(name, f"{shape} {label}", got, again, ref))
+        print(f"  ({m}, {k}, {n}) routes: {json.dumps(routes)}", flush=True)
         bf = b.float().contiguous()
         ms = {
             "int8_gemm": device_ms(lambda: int8_gemm(a, b, s_a, s_b, bias)),
             "w8_gemm": device_ms(lambda: w8_gemm(x, b, s_b, bias)),
         }
+        extra = {"int8_gemm": {"fp32_in_ms": device_ms(lambda: int8_gemm(x, b, s_a, s_b, bias))},
+                 "w8_gemm": {}}
+        if bf16_ok:
+            extra["int8_gemm"]["bf16_in_ms"] = device_ms(
+                lambda: int8_gemm(x16, b, s_a, s_b, bias))
+            extra["w8_gemm"]["bf16_in_ms"] = device_ms(lambda: w8_gemm(x16, b, s_b, bias))
+        if tfifo is not None:
+            extra["int8_gemm"]["taps_ms"] = device_ms(
+                lambda: int8_gemm(tfifo["fp32"], b, s_a, s_b, bias, taps=taps))
+            extra["w8_gemm"]["taps_ms"] = device_ms(
+                lambda: w8_gemm(tfifo["fp32"], b, s_b, bias, taps=taps))
         plain = {
             "int8_gemm": device_ms(lambda: int8_gemm_plain(a, b, s_a, s_b, bias), calls=3),
             "w8_gemm": device_ms(lambda: w8_gemm_plain(x, b, s_b, bias), calls=3),
@@ -2286,31 +2394,52 @@ def int8_kernel_phase(recs):
             "w8_gemm": device_ms(lambda: torch.matmul(x, bf)),
         }
         flops = 2 * m * n * k
+        nbytes = m * k + k * n + 4 * m * n + 8 * n
         bnd = {
-            "int8_gemm": bound(m * k + k * n + 4 * m * n + 8 * n, flops, "int8"),
-            "w8_gemm": bound(4 * m * k + k * n + 4 * m * n + 8 * n, flops, "float32"),
+            "int8_gemm": bound(nbytes, flops, "int8"),
+            "w8_gemm": bound(nbytes + 3 * m * k, 2 * flops, "tf32"),
         }
         for name in ("int8_gemm", "w8_gemm"):
             bb = bnd[name]
             libs = "none" if lib[name] is None else f"{lib[name]:.4f} ms"
-            print(f"  {name} ({m}, {k}, {n}) x{w}: kernel {ms[name]:.4f} ms, plain "
+            more = "".join(f", {key} {v:.4f}" for key, v in extra[name].items())
+            print(f"  {name} ({m}, {k}, {n}) x{w}: kernel {ms[name]:.4f} ms{more}, plain "
                   f"{plain[name]:.4f} ms, library {libs}, bound {bb[0]:.4f} ms "
                   f"({'bytes' if bb[1] >= bb[2] else 'operations'})", flush=True)
             r = sums[name]
-            r["max_abs_err"] = max(r["max_abs_err"], w8_err if name == "w8_gemm" else 0.0)
+            r["max_abs_err"] = max(r["max_abs_err"], errs[name])
             for key, val in (("ms", ms[name]), ("plain_ms", plain[name]), ("bound_ms", bb[0]),
-                             ("_tb", bb[1]), ("_to", bb[2])):
-                r[key] += w * val
+                             ("_tb", bb[1]), ("_to", bb[2]), *extra[name].items()):
+                r[key] = r.get(key, 0.0) + w * val
             if lib[name] is not None:
                 r["library_ms"] += w * lib[name]
                 r["library_kernel_ms"] += w * ms[name]
-        del a, fifo, x, xfifo, b, bf
+            if (m, k, n) in LARGE_INT8:
+                large[f"{name} {m}x{k}x{n}"] = {"ms": ms[name], **extra[name],
+                                                "bound_ms": bb[0], "library_ms": lib[name]}
+        del a, fifo, x, x16, xfifo, b, bf, tfifo, ties
+    forms = {"fp32_in_ms": "fp32 operand", "bf16_in_ms": "bf16 operand",
+             "taps_ms": "the tcn sites' taps"}
     for name, r in sums.items():
+        more = ", ".join(f"{what} {r[key]:.4f}" for key, what in forms.items() if key in r)
         print(f"{name} over one step of RT9's and CoST9's cells at B={B_STREAM}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; "
-              f"library {r['library_ms']:.4f} ms against the kernel's "
-              f"{r['library_kernel_ms']:.4f} ms at the sites it takes", flush=True)
+              f"{r['ms']:.4f} ms ({more}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; library "
+              f"{r['library_ms']:.4f} ms against the kernel's {r['library_kernel_ms']:.4f} ms "
+              f"at the sites it takes", flush=True)
         recs[name] = r
+    for key, v in large.items():
+        print(f"large shape {key}: {json.dumps(v)}", flush=True)
+    recs["int8_gemm"]["large"] = {k: v for k, v in large.items() if k.startswith("int8")}
+    recs["w8_gemm"]["large"] = {k: v for k, v in large.items() if k.startswith("w8")}
+
+
+def counted(fn, calls):
+    """``fn`` that appends to ``calls`` at each call."""
+    def wrapped(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+    return wrapped
 
 
 def stream_logits(step, state, x):
@@ -2339,7 +2468,9 @@ def int8_cell_phase():
     Each run with the counters at zero launches exactly one int8_gemm (w8:
     w8_gemm) per product site a step, the sites of calibrate_scales less
     the .state ones, and nothing else; it equals the same cell on the plain
-    versions (torch.equal, w8 within TOL_MODEL); it tracks the fp32 cell
+    versions (torch.equal, w8 within TOL_MODEL); CoST-GCN's cells call no
+    torch.stack (their temporal convs read the taps from the FIFO); the
+    launches by route are printed; it tracks the fp32 cell
     (gcn_core, once a layer a step): mean relative distance < 0.2, bf16 and
     int8 state < 0.15 against the fp32-state static cell, top-1 agreement
     > INT8_TOP1. Then check_stream_drift of
@@ -2356,6 +2487,7 @@ def int8_cell_phase():
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
     none = {k: 0 for k in all_counts()}
     parts = {}
+    stack = torch.stack
     for config, tag in INT8_CONFIGS:
         name, model, _ = quant_sites(config)
         quantize, qstep, qinit = tq.QUANT_MODELS[name]
@@ -2377,22 +2509,34 @@ def int8_cell_phase():
             kernel = "w8_gemm" if mode == "w8" else "int8_gemm"
             cell = f"{tag} int8 {mode} {sd} state"
             step = lambda st, x_t: qstep(model, qparams, st, x_t)  # noqa: E731
+            stacks = []
+
+            def counted_step(st, x_t):  # the cell's torch.stack calls, counted
+                with mock.patch.object(torch, "stack", counted(stack, stacks)):
+                    return step(st, x_t)
+
             with tq.quant_mode(mode, scales if mode == "static" else None):
                 reset_all_counts()
-                y = stream_logits(step, qinit(model, INT8_CELL_B, dtypes[sd]), x)
+                y = stream_logits(counted_step, qinit(model, INT8_CELL_B, dtypes[sd]), x)
                 parts[cell] = all_counts()
+                routes = route_counts()
                 with mock.patch.object(tq, "int8_gemm", int8_gemm_plain), \
                         mock.patch.object(tq, "w8_gemm", w8_gemm_plain):
                     y_plain = stream_logits(step, qinit(model, INT8_CELL_B, dtypes[sd]), x)
             want = {**none, kernel: len(sites) * INT8_CELL_L}
             check(parts[cell] == want, f"{cell} launched {parts[cell]}, want {want} "
                   f"({len(sites)} sites a step)")
+            # CoST-GCN's temporal convs read their taps from the FIFO: no stack
+            # (RT-ST-GCN's accumulator stacks its taps outside any product)
+            check(name != "co-st-gcn" or not stacks, f"{cell} stacked {len(stacks)} tensors")
             check(bool(torch.isfinite(y).all()), f"{cell}: non-finite logits")
             err, rel = rel_err(y, y_plain)
             same = torch.equal(y, y_plain)
             print(f"{cell}, {INT8_CELL_B} x {INT8_CELL_L} frames: {len(sites)} {kernel} a "
-                  f"step; kernels vs plain versions: {'equal' if same else 'differ'} (max abs "
-                  f"err {err:.3e}, relative {rel:.3e})", flush=True)
+                  f"step (by route {json.dumps({k: v for k, v in routes.items() if v})}; "
+                  f"torch.stack {len(stacks)} calls); kernels vs plain versions: "
+                  f"{'equal' if same else 'differ'} (max abs err {err:.3e}, relative "
+                  f"{rel:.3e})", flush=True)
             if mode == "w8":
                 check(rel <= TOL_MODEL, f"{cell}: relative error {rel:.3e} > {TOL_MODEL}")
             else:
@@ -2792,6 +2936,8 @@ def run() -> int:
     int8_kernel_phase(recs)
     phase_done("int8 products vs plain", t_phase)
     int8_launched = {k: 0 for k in _int8_wrappers()}
+    reset_all_counts()
+    ROUTES_SEEN.clear()  # from here: the int8 paths' launches by route
     t_phase = time.perf_counter()
     int8_parts = int8_cell_phase()
     phase_done("int8 cells", t_phase)
@@ -2801,8 +2947,9 @@ def run() -> int:
     phase_done("int8 entry points", t_phase)
     for part in int8_parts.values():
         int8_launched = {k: int8_launched[k] + part[k] for k in int8_launched}
+    reset_all_counts()
     print(f"launches on the int8 paths (calibration, cells, drift, serving, quant_ab, CLI): "
-          f"{json.dumps(int8_launched)}", flush=True)
+          f"{json.dumps(int8_launched)}; by route {json.dumps(ROUTES_SEEN)}", flush=True)
     check(all(v > 0 for v in int8_launched.values()),
           f"an int8 product never launched: {int8_launched}")
 
@@ -2817,11 +2964,15 @@ def run() -> int:
         # no TPU kernel: the JAX VJP of the shift (_ts_bwd) is XLA
         "temporal_shift_bwd": ("stgx_torch/csrc/temporal_shift.cu", "stgx/ops/shift.py:149"),
         # no TPU kernels: the int8 cells' XLA products
-        "int8_gemm": ("stgx_torch/csrc/int8_gemm.cu",
+        "int8_gemm": ("stgx_torch/csrc/int8_gemm_tma.cuh",
                       "stgx/bench/quant.py:199 (XLA int8 dot_general)"),
-        "w8_gemm": ("stgx_torch/csrc/int8_gemm.cu", "stgx/bench/quant.py:194 (XLA w8 dot_general)"),
+        "w8_gemm": ("stgx_torch/csrc/int8_gemm_tma.cuh",
+                    "stgx/bench/quant.py:194 (XLA w8 dot_general)"),
     }
     launched = {**launched, **int8_launched}
+    for name in _int8_wrappers():
+        recs[name]["launches_by_route"] = {key.split(".")[1]: n for key, n in ROUTES_SEEN.items()
+                                           if key.startswith(name)}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = recs[name]
@@ -2840,9 +2991,13 @@ def run() -> int:
           f"launches of one Shift-GCN forward of {SG_WINDOWS} windows; launches are those "
           f"of the serving, training and CLI paths of RT-ST-GCN, Shift-GCN and CoST-GCN; "
           f"int8_gemm and w8_gemm over one step of RT9's and CoST9's int8 cells at "
-          f"B={B_STREAM} (library_ms: torch._int_mm at the sites it takes, beside the "
-          f"kernel's library_kernel_ms there; torch.matmul on an fp32 weight for w8), their "
-          f"launches those of the int8 paths; "
+          f"B={B_STREAM} with int8 codes / fp32 operands (library_ms: torch._int_mm at the "
+          f"sites it takes, beside the kernel's library_kernel_ms there; torch.matmul on an "
+          f"fp32 weight for w8; fp32_in_ms (int8_gemm) / bf16_in_ms / taps_ms: the operand "
+          f"in fp32 or bf16 (quantized inside int8_gemm, widened in w8_gemm; bf16 at the "
+          f"sites the tma route takes, all but fcn_in) and the tcn sites' FIFO taps; "
+          f"w8's bound: its two TF32 passes; large: the shapes of LARGE_INT8), their "
+          f"launches those of the int8 paths (launches_by_route: tma / staged); "
           f"gcn_core and gcn_grads "
           f"also give their fp32 route's bound and their bf16 times and bound, rt_fused "
           f"and rt_fused_bwd the port's unfused kernels for the same function "

@@ -12,9 +12,12 @@ The scheme is the JAX package's:
   :func:`calibrate_scales`;
 * the products run on the hand-written kernels of
   :mod:`stgx_torch.ops.int8_gemm`: int8 × int8 summed in int32
-  (``int8_gemm``) and rescaled to fp32; in ``"w8"`` mode fp32 activations
-  against the int8 weight widened in registers (``w8_gemm``); the tiny
-  adjacency contraction stays an fp32 ``einsum``.
+  (``int8_gemm``) and rescaled to fp32, the fp32 activation handed to the
+  kernel as it is and quantized there under its scale (no quantize pass in
+  the cell); in ``"w8"`` mode fp32 activations against the int8 weight
+  widened inside the product (``w8_gemm``); CoST-GCN's temporal conv hands
+  the kernels its FIFO and dilation (``taps``) instead of a stack of its
+  taps; the tiny adjacency contraction stays an fp32 ``einsum``.
 
 Three modes (:func:`quant_mode`): ``"dynamic"``, ``"static"`` (site-keyed
 calibrated scales) and ``"w8"``. Static scales are keyed by explicit site
@@ -44,7 +47,7 @@ import torch
 
 from stgx_torch.models import costgcn
 from stgx_torch.models.rtstgcn import frame_norm
-from stgx_torch.ops.int8_gemm import int8_gemm, w8_gemm, weight_layout
+from stgx_torch.ops.int8_gemm import int8_gemm, quantize_codes, w8_gemm, weight_layout
 from stgx_torch.ops.temporal import init_accumulator_state
 
 __all__ = [
@@ -87,13 +90,9 @@ def _const(value: float, device) -> torch.Tensor:
 
 
 def _abs_max_scale(x) -> torch.Tensor:
-    """``max(max|x|, 1e-12) / 127`` as a 0-d fp32 tensor on x's device."""
-    return torch.clamp_min(x.abs().amax(), 1e-12) / _const(127.0, x.device)
-
-
-def _codes(x, scale) -> torch.Tensor:
-    """``clip(round(x / scale), -127, 127)`` as int8 (round half to even)."""
-    return torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
+    """``max(max|x|, 1e-12) / 127`` as a 0-d fp32 tensor on x's device (a
+    bf16 ``x``'s maximum, exact, taken to fp32 first)."""
+    return torch.clamp_min(x.abs().amax().float(), 1e-12) / _const(127.0, x.device)
 
 
 def quantize_weight(w):
@@ -105,7 +104,7 @@ def quantize_weight(w):
         w = w.detach().float()
         s = w.abs().amax(dim=tuple(range(w.dim() - 1))) / _const(127.0, w.device)
         s = torch.clamp_min(s, 1e-12)
-        return _codes(w, s), s
+        return quantize_codes(w, s), s
 
 
 @contextlib.contextmanager
@@ -181,9 +180,10 @@ def _as_scale(scale, device) -> torch.Tensor:
     return torch.tensor(float(scale), dtype=torch.float32, device=device)
 
 
-def _quantize_act(x, scale=None, site=None):
-    """``(x_q, scale)``: the given scale, the site's static one, or the
-    live abs-max scale (observed by a calibration)."""
+def _act_scale(x, scale=None, site=None):
+    """The scale an activation is quantized under: the given one, the
+    site's static one, or the live abs-max scale of ``x`` (observed by a
+    calibration)."""
     if scale is None:
         if _MODE == "static" and _STATIC is not None:
             scale = _static_scale(site, x.device)
@@ -196,30 +196,40 @@ def _quantize_act(x, scale=None, site=None):
                 _OBSERVER.append((site, scale))
     else:
         scale = _as_scale(scale, x.device)
-    return _codes(x, scale), scale
+    return scale
 
 
-def int8_matmul(x, w_q, s_w, act_scale=None, site=None, bias=None):
+def int8_matmul(x, w_q, s_w, act_scale=None, site=None, bias=None, taps=None):
     """``x @ w`` with the int8 weight ``(w_q, s_w)``, by the mode.
 
-    dynamic / static: ``x`` quantized (a live or the site's calibrated
-    scale), then ``int8_gemm``; w8: ``w8_gemm`` on fp32 ``x``. An int8 ``x``
-    (int8 FIFO taps feeding the product directly) skips the quantize and
-    needs ``act_scale``, the scale its codes were stored under. ``bias``
-    is added after the scale, inside the kernel's epilogue, in the order
-    the JAX cells add it outside the product.
+    dynamic / static: ``x`` and its scale (a live or the site's calibrated
+    one) go to ``int8_gemm``, which quantizes ``x`` inside the product; w8:
+    ``w8_gemm`` on fp32 ``x``. An int8 ``x`` (int8 FIFO taps feeding the
+    product directly) is not quantized and needs ``act_scale``, the scale
+    its codes were stored under. ``bias`` is added after the scale, inside
+    the kernel's epilogue, in the order the JAX cells add it outside the
+    product. ``taps=(gamma, d)``: ``x`` is a FIFO ``(depth, *lead, C)`` and
+    the operand its taps ``u[..., tap·C + c] = x[depth − 1 − tap·d, ..., c]``
+    (the kernels read them from the FIFO); a live scale is the abs-max of the
+    tapped slots.
     """
-    lead, k = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, k)
+    if taps is None:
+        lead, k = x.shape[:-1], x.shape[-1]
+        a = x.reshape(-1, k)
+        tapped = a
+    else:
+        gamma, d = taps
+        lead, a = x.shape[1:-1], x
+        lo = x.shape[0] - 1 - (gamma - 1) * d
+        tapped = x[lo::d] if lo >= 0 else x
     if x.dtype == torch.int8:
         if act_scale is None:
             raise ValueError("pre-quantized int8 input needs its storage act_scale")
-        y = int8_gemm(x2, w_q, _as_scale(act_scale, x.device), s_w, bias)
+        y = int8_gemm(a, w_q, _as_scale(act_scale, x.device), s_w, bias, taps=taps)
     elif _MODE == "w8":
-        y = w8_gemm(x2, w_q, s_w, bias)
+        y = w8_gemm(a, w_q, s_w, bias, taps=taps)
     else:
-        x_q, s_x = _quantize_act(x2, act_scale, site=site)
-        y = int8_gemm(x_q, w_q, s_x, s_w, bias)
+        y = int8_gemm(a, w_q, _act_scale(tapped, act_scale, site=site), s_w, bias, taps=taps)
     return y.reshape(*lead, w_q.shape[1])
 
 
@@ -245,7 +255,7 @@ def _fifo_put(y, fifo_dtype, site, observe: bool = True):
                 "would misprice older taps"
             )
         s = _static_scale(site, y.device)
-        return _codes(y, s), s
+        return quantize_codes(y, s), s
     if observe:
         _observe_state_site(y, site)
     return y.to(fifo_dtype), None
@@ -459,16 +469,14 @@ def quantized_costgcn_stream_step(model, qparams, state, x_t):
         stored, s_fifo = _fifo_put(y, st["fifo"].dtype, site=f"layers.{i}.tcn",
                                    observe=False)
         fifo = torch.cat([st["fifo"][1:], stored[None]], dim=0)
-        depth = fifo.shape[0]
-        # u[t − k·d] at slot depth − 1 − k·d, k = 0..Γ−1: (N, V, Γ, C) →
-        # (N, V, Γ·C), the row order of the pre-flipped (Γ·C, C) kernel
-        u = torch.stack([fifo[depth - 1 - k * d] for k in range(gamma)], dim=2)
-        u = u.reshape(u.shape[0], u.shape[1], -1)
+        # the taps u[t − k·d] at slot depth − 1 − k·d, k = 0..Γ−1, in the row
+        # order of the pre-flipped (Γ·C, C) kernel, read by the product from
+        # the FIFO itself (no stack of them)
         tq, ts, tb = lq["tcn"]
         if s_fifo is not None:
-            y = int8_matmul(u, tq, ts, act_scale=s_fifo, bias=tb)
+            y = int8_matmul(fifo, tq, ts, act_scale=s_fifo, bias=tb, taps=(gamma, d))
         else:
-            y = int8_matmul(u.float(), tq, ts, site=f"layers.{i}.tcn", bias=tb)
+            y = int8_matmul(fifo, tq, ts, site=f"layers.{i}.tcn", bias=tb, taps=(gamma, d))
         y = frame_norm(kind, **norms[1], x_t=y)
         new_state.append({"fifo": fifo, "res_fifo": res_fifo})
         x = torch.relu(y + res)

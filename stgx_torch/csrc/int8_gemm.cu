@@ -1,47 +1,40 @@
-// The int8 products of the quantized streaming cells
-// (stgx_torch/bench/quant.py::int8_matmul):
+// The int8 products of the quantized streaming cells on the shapes TMA
+// cannot take (the "staged" route of ops/int8_gemm.py; int8_gemm_tma.cu is
+// the route for every other shape):
 //
-//   int8_gemm_kernel:  C[m,n] = float(sum_k A[m,k] * B[k,n]) * (s_a * s_b[n]) (+ bias[n]),
-//                      A, B int8, the sum in int32;
+//   int8_gemm_kernel:  C[m,n] = float(sum_k q(A)[m,k] * B[k,n]) * (s_a * s_b[n]) (+ bias[n]),
+//                      B int8, A int8 codes or fp32 quantized as it is staged,
+//                      the sum in int32;
 //   w8_gemm_kernel:    C[m,n] = (sum_k X[m,k] * float(B[k,n])) * s_b[n] (+ bias[n]),
-//                      X fp32, B int8 widened in registers, fp32 FMAs.
+//                      X fp32, B int8 widened as it is staged, fp32 FMAs.
+//
+// A bf16 operand takes the tma route alone (the cells hand one only to
+// CoST-GCN's temporal convs, whose rows TMA reads).
 //
 // Replaces stgx/bench/quant.py:199 (the int8 x int8 -> int32 dot_general of
 // int8_matmul, XLA on the TPU's MXU; :189 for an int8 input that is already
 // quantized) and :194 (the w8 dot_general with the weight widened inside
-// it). Neither is a Pallas kernel; PyTorch has no int8 product behind
-// torch.matmul on the card, and torch._int_mm (cuBLASLt) takes neither
-// M <= 16 nor K or N off a multiple of 8, which the cells have (M = 1, K = 3,
-// N = 52).
+// it), where a row of A or of the weight is not a multiple of 16 bytes:
+// the cells' fcn_in (K = 3) and ragged shapes. Neither is a Pallas kernel.
 //
-// Shapes of the cells: M = B * 25 rows (B for the classifier), K in {3, 64,
-// 128, 192, 384, 768} and, for CoST-GCN's temporal conv, Gamma * C up to
-// 69 * 256 = 17,664; N in {52, 64, 128, 256}.
+// Bound on the H100: the larger of the bytes (A, B, C read or written once)
+// over 3.35 TB/s and 2*M*N*K operations over 1,979 TOP/s (int8 tensor
+// cores) or 67 TFLOP/s (w8, fp32 FMAs). At fcn_in (K = 3) the output's
+// bytes bind.
 //
-// Bound on the H100: the larger of the bytes (A, B, C read or written once:
-// M*K + K*N + 4*M*N for int8, 4*M*K + K*N + 4*M*N for w8) over 3.35 TB/s and
-// 2*M*N*K operations over 1,979 TOP/s (int8 tensor cores) or 67 TFLOP/s
-// (w8, fp32 FMAs). At B = 1 the weight's bytes bind both (M = 25); at
-// B = 4096 int8 is still bytes-bound (K <= 768: at most 2*768 / 5 ~ 300
-// operations a byte against the int8 ridge of ~590), w8 operations-bound.
-//
-// Design, right and simple first (wgmma and TMA are later work):
+// Design, right and simple (the shapes it takes are small):
 //  * int8: 64 x 64 output tiles, four warps of 32 x 32, each k step of 32 one
 //    mma.sync m16n8k32 s8 per 16 x 8 piece; A and B staged 64 bytes of k at a
-//    time in shared memory with cp.async, double buffered. B arrives
-//    column-major (the weight layout quantize_* makes once: k contiguous in
-//    each output column), which is the layout the B fragment wants, so both
-//    operands stage as rows of k. A takes a row stride (a FIFO view needs no
-//    copy). Ragged M, N and K (K = 3, N = 52) are zero-filled at staging.
+//    time in shared memory, double buffered (cp.async for int8 rows that are
+//    16-byte aligned, else element by element, an fp32 A quantized
+//    there: clamp(rint(x / s_a), -127, 127), IEEE division, half to even).
+//    B arrives column-major (the weight layout quantize_* makes once: k
+//    contiguous in each output column), the layout the B fragment wants.
+//    Ragged M, N and K are zero-filled at staging.
 //  * w8: 64 x 64 output tiles, 256 threads of 4 x 4 fp32 sums, 32 k a
 //    stage; x staged transposed in shared memory, the weight widened from
-//    int8 to fp32 as it is staged: no fp32 copy of the weight exists in
-//    device memory.
-//  * Few output tiles (small M) and a deep K would leave most SMs idle, so
-//    the host (ops/int8_gemm.py::gemm_plan) splits K over up to `splits`
-//    blocks; each writes its partial sums to a workspace and a second kernel
-//    adds them in split order (int32 exact; fp32 in a fixed order, so a run
-//    repeats bit for bit) and applies the epilogue.
+//    int8 to fp32 as it is staged.
+//  * One launch a call: K is not split on this route.
 //  * The epilogue rounds as the plain version does: s_a * s_b[n] in fp32,
 //    then its product with float(acc), then + bias, each with __fmul_rn /
 //    __fadd_rn, so that no FMA contracts them. s_a is read from device
@@ -64,17 +57,28 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Stage rows [0, 64) x k [k0, k0 + 64) of a row-major int8 matrix (row i at
-// base + i * ld) into dst; rows at or past `rows` and k at or past K are zero.
-__device__ __forceinline__ void stage_i8(int8_t* dst, const int8_t* base, long long ld,
-                                         int rows, int k0, int K, bool vec) {
+// The int8 code of one element of A: int8 as it is, fp32 quantized under
+// sa.
+__device__ __forceinline__ uint32_t code_of(int8_t v, float) { return (uint8_t)v; }
+__device__ __forceinline__ uint32_t code_of(float v, float sa) {
+  const int q = __float2int_rn(__fdiv_rn(v, sa));
+  return (uint8_t)(int8_t)max(-127, min(127, q));
+}
+
+// Stage rows [0, 64) x k [k0, k0 + 64) of a row-major matrix (row i at
+// base + i * ld elements) into dst as int8 codes; rows at or past `rows`
+// and k at or past K are zero. `vec`: int8 rows 16-byte aligned, copied with
+// cp.async.
+template <typename T>
+__device__ __forceinline__ void stage_i8(int8_t* dst, const T* base, long long ld, int rows,
+                                         int k0, int K, bool vec, float sa) {
   for (int i = threadIdx.x; i < kI8BM * (kI8BK / 16); i += kI8Threads) {
     const int r = i >> 2, c = (i & 3) * 16;
     int8_t* d = dst + r * kI8Ld + c;
-    const int8_t* s = base + (long long)r * ld + k0 + c;
-    if (vec) {  // K % 16 == 0: a 16-byte chunk is all in or all out
+    const T* s = base + (long long)r * ld + k0 + c;
+    if (sizeof(T) == 1 && vec) {  // K % 16 == 0: a 16-byte chunk is all in or all out
       const bool ok = r < rows && k0 + c < K;
-      mma::cp_async16(d, ok ? s : base, ok);
+      mma::cp_async16(d, ok ? (const void*)s : (const void*)base, ok);
     } else {
       uint32_t w[4];
 #pragma unroll
@@ -83,7 +87,7 @@ __device__ __forceinline__ void stage_i8(int8_t* dst, const int8_t* base, long l
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int k = k0 + c + 4 * q + j;
-          const uint32_t byte = (r < rows && k < K) ? (uint8_t)s[4 * q + j] : 0u;
+          const uint32_t byte = (r < rows && k < K) ? code_of(s[4 * q + j], sa) : 0u;
           v |= byte << (8 * j);
         }
         w[q] = v;
@@ -100,22 +104,22 @@ __device__ __forceinline__ float i8_epilogue(int acc, float sa, const float* s_b
   return y;
 }
 
-// grid (M tiles, N tiles, splits); split z sums k tiles [z*kper, (z+1)*kper).
+// grid (M tiles, N tiles).
+template <typename T>
 __global__ void __launch_bounds__(kI8Threads) int8_gemm_kernel(
-    const int8_t* __restrict__ A, long long lda, const int8_t* __restrict__ B, long long ldb,
+    const T* __restrict__ A, long long lda, const int8_t* __restrict__ B, long long ldb,
     const float* __restrict__ s_a, const float* __restrict__ s_b,
-    const float* __restrict__ bias, float* __restrict__ C, int* __restrict__ ws, int M,
-    int N, int K, int kper) {
+    const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
   __shared__ __align__(16) int8_t sA[2][kI8BM * kI8Ld];
   __shared__ __align__(16) int8_t sB[2][kI8BN * kI8Ld];
   const int m0 = blockIdx.x * kI8BM, n0 = blockIdx.y * kI8BN;
   const int rows_a = M - m0, rows_b = N - n0;
-  const int8_t* a_base = A + (long long)m0 * lda;
+  const T* a_base = A + (long long)m0 * lda;
   const int8_t* b_base = B + (long long)n0 * ldb;
   const bool vec_a = K % 16 == 0 && lda % 16 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
   const bool vec_b = K % 16 == 0 && ldb % 16 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
   const int ktiles = (K + kI8BK - 1) / kI8BK;
-  const int kt0 = blockIdx.z * kper, kt1 = imin(ktiles, kt0 + kper);
+  const float sa = *s_a;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -123,14 +127,14 @@ __global__ void __launch_bounds__(kI8Threads) int8_gemm_kernel(
   int acc[2][4][4] = {};
 
   auto stage = [&](int buf, int kt) {
-    stage_i8(sA[buf], a_base, lda, rows_a, kt * kI8BK, K, vec_a);
-    stage_i8(sB[buf], b_base, ldb, rows_b, kt * kI8BK, K, vec_b);
+    stage_i8(sA[buf], a_base, lda, rows_a, kt * kI8BK, K, vec_a, sa);
+    stage_i8(sB[buf], b_base, ldb, rows_b, kt * kI8BK, K, vec_b, 1.f);
   };
-  if (kt0 < kt1) stage(0, kt0);
+  stage(0, 0);
   mma::cp_async_commit();
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int cur = (kt - kt0) & 1;
-    if (kt + 1 < kt1) stage(cur ^ 1, kt + 1);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < ktiles) stage(cur ^ 1, kt + 1);
     mma::cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
@@ -161,8 +165,6 @@ __global__ void __launch_bounds__(kI8Threads) int8_gemm_kernel(
     __syncthreads();
   }
 
-  const float sa = ws == nullptr ? *s_a : 0.f;
-  int* part = ws == nullptr ? nullptr : ws + (long long)blockIdx.z * M * N;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -174,29 +176,9 @@ __global__ void __launch_bounds__(kI8Threads) int8_gemm_kernel(
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int n = n0 + wn + ni * 8 + 2 * t + j;
-          if (n >= N) continue;
-          const int v = acc[mi][ni][2 * h + j];
-          if (part != nullptr)
-            part[(long long)m * N + n] = v;
-          else
-            C[(long long)m * N + n] = i8_epilogue(v, sa, s_b, bias, n);
+          if (n < N) C[(long long)m * N + n] = i8_epilogue(acc[mi][ni][2 * h + j], sa, s_b, bias, n);
         }
       }
-}
-
-// The splits' int32 partials summed (exact in any order), then the epilogue.
-__global__ void __launch_bounds__(kThreads) int8_splits_kernel(
-    const int* __restrict__ ws, int splits, const float* __restrict__ s_a,
-    const float* __restrict__ s_b, const float* __restrict__ bias, float* __restrict__ C,
-    int M, int N) {
-  const long long mn = (long long)M * N;
-  const float sa = *s_a;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < mn;
-       i += (long long)gridDim.x * kThreads) {
-    int acc = 0;
-    for (int z = 0; z < splits; ++z) acc += ws[z * mn + i];
-    C[i] = i8_epilogue(acc, sa, s_b, bias, (int)(i % N));
-  }
 }
 
 // ---------------------------------------------------------------- fp32 x int8
@@ -211,21 +193,20 @@ __device__ __forceinline__ float w8_epilogue(float acc, const float* s_b, const 
   return y;
 }
 
-// grid (M tiles, N tiles, splits), kThreads threads of 4 x 4 outputs.
+// grid (M tiles, N tiles), kThreads threads of 4 x 4 outputs.
 __global__ void __launch_bounds__(kThreads) w8_gemm_kernel(
     const float* __restrict__ X, long long ldx, const int8_t* __restrict__ B, long long ldb,
     const float* __restrict__ s_b, const float* __restrict__ bias, float* __restrict__ C,
-    float* __restrict__ ws, int M, int N, int K, int kper) {
+    int M, int N, int K) {
   __shared__ __align__(16) float sX[kW8BK * kW8Ld];  // [k][m]
   __shared__ __align__(16) float sW[kW8BK * kW8Ld];  // [k][n], widened
   const int m0 = blockIdx.x * kW8BM, n0 = blockIdx.y * kW8BN;
   const int tid = threadIdx.x, tm = tid >> 4, tn = tid & 15;
   const bool vec_b = K % 8 == 0 && ldb % 8 == 0 && reinterpret_cast<uintptr_t>(B) % 8 == 0;
   const int ktiles = (K + kW8BK - 1) / kW8BK;
-  const int kt0 = blockIdx.z * kper, kt1 = imin(ktiles, kt0 + kper);
   float acc[4][4] = {};
 
-  for (int kt = kt0; kt < kt1; ++kt) {
+  for (int kt = 0; kt < ktiles; ++kt) {
     const int k0 = kt * kW8BK;
     // x: 64 rows x 32 k, read along k (coalesced), stored [k][m]
 #pragma unroll
@@ -262,7 +243,6 @@ __global__ void __launch_bounds__(kThreads) w8_gemm_kernel(
     __syncthreads();
   }
 
-  float* part = ws == nullptr ? nullptr : ws + (long long)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + 4 * tm + i;
@@ -270,78 +250,52 @@ __global__ void __launch_bounds__(kThreads) w8_gemm_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + 4 * tn + j;
-      if (n >= N) continue;
-      if (part != nullptr)
-        part[(long long)m * N + n] = acc[i][j];
-      else
-        C[(long long)m * N + n] = w8_epilogue(acc[i][j], s_b, bias, n);
+      if (n < N) C[(long long)m * N + n] = w8_epilogue(acc[i][j], s_b, bias, n);
     }
   }
-}
-
-// The splits' fp32 partials added in split order, then the epilogue.
-__global__ void __launch_bounds__(kThreads) w8_splits_kernel(
-    const float* __restrict__ ws, int splits, const float* __restrict__ s_b,
-    const float* __restrict__ bias, float* __restrict__ C, int M, int N) {
-  const long long mn = (long long)M * N;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < mn;
-       i += (long long)gridDim.x * kThreads) {
-    float acc = 0.f;
-    for (int z = 0; z < splits; ++z) acc = __fadd_rn(acc, ws[z * mn + i]);
-    C[i] = w8_epilogue(acc, s_b, bias, (int)(i % N));
-  }
-}
-
-int reduce_blocks(long long mn) {
-  return (int)lmin((mn + kThreads - 1) / kThreads, 132LL * 16);
 }
 
 }  // namespace
 }  // namespace stgx
 
-// A (M, K) int8 with row stride lda; B (K, N) int8 column-major (column n at
-// b + n * ldb); s_a one fp32 in device memory; s_b, bias (nullable) (N,) fp32;
-// C (M, N) fp32 contiguous. splits > 1 needs ws, (splits, M, N) int32; split z
-// takes the k tiles of 64 from z * kper. Returns the launch's CUDA error.
-extern "C" int stgx_int8_gemm(const void* a, long long lda, const void* b, long long ldb,
-                              const void* s_a, const void* s_b, const void* bias, void* c,
-                              void* ws, int M, int N, int K, int splits, int kper,
-                              void* stream) {
+// A (M, K) with row stride lda elements: a_type 0 int8 codes, 1 fp32
+// (quantized under s_a); B (K, N) int8 column-major (column n at
+// b + n * ldb); s_a one fp32 in device memory; s_b, bias (nullable) (N,)
+// fp32; C (M, N) fp32 contiguous. Returns the launch's CUDA error.
+extern "C" int stgx_int8_gemm(int a_type, const void* a, long long lda, const void* b,
+                              long long ldb, const void* s_a, const void* s_b, const void* bias,
+                              void* c, int M, int N, int K, void* stream) {
   using namespace stgx;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || splits < 1 || (splits > 1 && ws == nullptr)) return 0;
-  const dim3 grid((M + kI8BM - 1) / kI8BM, (N + kI8BN - 1) / kI8BN, splits);
-  int8_gemm_kernel<<<grid, kI8Threads, 0, st>>>(
-      static_cast<const int8_t*>(a), lda, static_cast<const int8_t*>(b), ldb,
-      static_cast<const float*>(s_a), static_cast<const float*>(s_b),
-      static_cast<const float*>(bias), static_cast<float*>(c),
-      splits > 1 ? static_cast<int*>(ws) : nullptr, M, N, K, kper);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  int8_splits_kernel<<<reduce_blocks((long long)M * N), kThreads, 0, st>>>(
-      static_cast<const int*>(ws), splits, static_cast<const float*>(s_a),
-      static_cast<const float*>(s_b), static_cast<const float*>(bias), static_cast<float*>(c),
-      M, N);
+  if (M <= 0 || N <= 0) return 0;
+  const dim3 grid((M + kI8BM - 1) / kI8BM, (N + kI8BN - 1) / kI8BN);
+  const int8_t* bq = static_cast<const int8_t*>(b);
+  const float *sa = static_cast<const float*>(s_a), *sb = static_cast<const float*>(s_b),
+              *bi = static_cast<const float*>(bias);
+  float* out = static_cast<float*>(c);
+  if (a_type == 0)
+    int8_gemm_kernel<<<grid, kI8Threads, 0, st>>>(static_cast<const int8_t*>(a), lda, bq, ldb,
+                                                   sa, sb, bi, out, M, N, K);
+  else if (a_type == 1)
+    int8_gemm_kernel<<<grid, kI8Threads, 0, st>>>(static_cast<const float*>(a), lda, bq, ldb,
+                                                   sa, sb, bi, out, M, N, K);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// X (M, K) fp32 with row stride ldx; B, s_b, bias, C as above; ws (splits, M, N)
-// fp32; split z takes the k tiles of 32 from z * kper.
-extern "C" int stgx_w8_gemm(const void* x, long long ldx, const void* b, long long ldb,
-                            const void* s_b, const void* bias, void* c, void* ws, int M, int N,
-                            int K, int splits, int kper, void* stream) {
+// X (M, K) fp32 with row stride ldx; B, s_b, bias, C as above.
+extern "C" int stgx_w8_gemm(const void* x, long long ldx, const void* b,
+                            long long ldb, const void* s_b, const void* bias, void* c, int M,
+                            int N, int K, void* stream) {
   using namespace stgx;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || splits < 1 || (splits > 1 && ws == nullptr)) return 0;
-  const dim3 grid((M + kW8BM - 1) / kW8BM, (N + kW8BN - 1) / kW8BN, splits);
-  w8_gemm_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), ldx, static_cast<const int8_t*>(b), ldb,
-      static_cast<const float*>(s_b), static_cast<const float*>(bias), static_cast<float*>(c),
-      splits > 1 ? static_cast<float*>(ws) : nullptr, M, N, K, kper);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  w8_splits_kernel<<<reduce_blocks((long long)M * N), kThreads, 0, st>>>(
-      static_cast<const float*>(ws), splits, static_cast<const float*>(s_b),
-      static_cast<const float*>(bias), static_cast<float*>(c), M, N);
+  if (M <= 0 || N <= 0) return 0;
+  const dim3 grid((M + kW8BM - 1) / kW8BM, (N + kW8BN - 1) / kW8BN);
+  const int8_t* bq = static_cast<const int8_t*>(b);
+  const float *sb = static_cast<const float*>(s_b), *bi = static_cast<const float*>(bias);
+  float* out = static_cast<float*>(c);
+  w8_gemm_kernel<<<grid, kThreads, 0, st>>>(static_cast<const float*>(x), ldx, bq, ldb, sb, bi,
+                                            out, M, N, K);
   return (int)cudaGetLastError();
 }

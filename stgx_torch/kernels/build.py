@@ -129,10 +129,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stgx_temporal_shift.restype = i
     lib.stgx_temporal_shift_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
     lib.stgx_temporal_shift_bwd.restype = i
-    lib.stgx_int8_gemm.argtypes = [p, ll, p, ll, p, p, p, p, p, i, i, i, i, i, p]
+    lib.stgx_int8_gemm.argtypes = [i, p, ll, p, ll, p, p, p, p, i, i, i, p]
     lib.stgx_int8_gemm.restype = i
-    lib.stgx_w8_gemm.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, i, i, p]
+    lib.stgx_w8_gemm.argtypes = [p, ll, p, ll, p, p, p, i, i, i, p]
     lib.stgx_w8_gemm.restype = i
+    for form in ("int8_gemm_tma_i8", "int8_gemm_tma_f32", "int8_gemm_tma_bf16",
+                 "w8_gemm_tma_f32", "w8_gemm_tma_bf16"):
+        fn = getattr(lib, f"stgx_{form}")
+        fn.argtypes = [p, ll, ll, i, i, i, i, p, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.stgx_error_string.argtypes = [i]
     lib.stgx_error_string.restype = ctypes.c_char_p
     return lib

@@ -102,8 +102,10 @@ def test_build_compiles_each_source_for_sm90a_and_links_one_library(fake_nvcc):
     assert lib.is_file()
     calls = fake_nvcc.read_text().splitlines()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert sources == ["gcn_core.cu", "gcn_grads.cu", "int8_gemm.cu", "rt_fused.cu",
-                       "rt_fused_bwd.cu", "temporal_shift.cu", "window_sum.cu"]
+    assert sources == ["gcn_core.cu", "gcn_grads.cu", "int8_gemm.cu", "int8_gemm_tma_bf16.cu",
+                       "int8_gemm_tma_f32.cu", "int8_gemm_tma_i8.cu", "rt_fused.cu",
+                       "rt_fused_bwd.cu", "temporal_shift.cu", "w8_gemm_tma_bf16.cu",
+                       "w8_gemm_tma_f32.cu", "window_sum.cu"]
     compiles = [c for c in calls if " -c " in c]
     assert sorted(Path(c.split(" -c ")[1].split()[0]).name for c in compiles) == sources
     assert all("arch=compute_90a,code=sm_90a" in c and "-fPIC" in c for c in compiles)
@@ -127,9 +129,11 @@ def test_kernel_sources_are_plain_c_with_their_notes():
         text = src.read_text()
         assert "torch/extension.h" not in text
         assert 'extern "C"' in text
-        # the int8 products replace XLA products of the quantized cells, the
-        # other sources the TPU kernels under stgx/ops
-        replaces = ("Replaces stgx/bench/quant.py:199" if src.name == "int8_gemm.cu"
+        # the int8 products replace XLA products of the quantized cells (the
+        # int8 one at :199, the w8 one at :194), the other sources the TPU
+        # kernels under stgx/ops
+        replaces = ("Replaces stgx/bench/quant.py:199" if src.name.startswith("int8_gemm")
+                    else "Replaces stgx/bench/quant.py:194" if src.name.startswith("w8_gemm")
                     else "Replaces stgx/ops/")
         assert replaces in text and "Bound on the H100" in text
 

@@ -36,9 +36,11 @@ from stgx.models.rtstgcn import RtStgcn as JRtStgcn
 from stgx.models.rtstgcn import stream_sequence as j_rt_stream
 from stgx_torch.models.costgcn import CoStgcn
 from stgx_torch.models.rtstgcn import RtStgcn
+import stgx_torch.ops.int8_gemm as int8_ops
 from stgx_torch.ops.int8_gemm import (
-    INT8_TILE,
-    W8_TILE,
+    KSTAGE,
+    SPLIT_STAGES,
+    STAGED_TILE,
     gemm_plan,
     int8_gemm,
     int8_gemm_plain,
@@ -93,25 +95,41 @@ def _flat(tree, path=""):
 
 class _Codes:
     """Records the int8 codes a cell makes (activations and int8 FIFO
-    writes), step by step, by wrapping a quant module's functions."""
+    writes), step by step and flattened, by wrapping a quant module's
+    ``_fifo_put`` and the function that makes its activation codes: the
+    JAX cell's ``_quantize_act``; in the port the kernels quantize inside
+    the product, whose plain version (the one a CPU tensor takes) makes
+    the codes with ``ops.int8_gemm.quantize_codes``."""
 
     def __init__(self, mp, mod):
         self.codes = []
-        act, put = mod._quantize_act, mod._fifo_put
-
-        def quantize_act(*a, **k):
-            x_q, s = act(*a, **k)
-            self.codes.append(np.asarray(x_q))
-            return x_q, s
+        put = mod._fifo_put
 
         def fifo_put(*a, **k):
             stored, s = put(*a, **k)
             if s is not None:
-                self.codes.append(np.asarray(stored))
+                self.codes.append(np.asarray(stored).reshape(-1))
             return stored, s
 
-        mp.setattr(mod, "_quantize_act", quantize_act)
         mp.setattr(mod, "_fifo_put", fifo_put)
+        if hasattr(mod, "_quantize_act"):
+            act = mod._quantize_act
+
+            def quantize_act(*a, **k):
+                x_q, s = act(*a, **k)
+                self.codes.append(np.asarray(x_q).reshape(-1))
+                return x_q, s
+
+            mp.setattr(mod, "_quantize_act", quantize_act)
+        else:
+            codes = int8_ops.quantize_codes
+
+            def quantize_codes(*a, **k):
+                x_q = codes(*a, **k)
+                self.codes.append(np.asarray(x_q).reshape(-1))
+                return x_q
+
+            mp.setattr(int8_ops, "quantize_codes", quantize_codes)
 
 
 def _run_jax(name, jm, qp, x, mode, sd, scales):
@@ -416,8 +434,8 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take():
     s = torch.ones(3)
     with pytest.raises(ValueError, match="kernel layout"):
         int8_gemm(a, torch.zeros(8, 3, dtype=torch.int8), torch.tensor(1.0), s)
-    with pytest.raises(TypeError, match="int8"):
-        int8_gemm(a.float(), b, torch.tensor(1.0), s)
+    with pytest.raises(TypeError, match="int8"):  # int8 codes, fp32 or bf16 only
+        int8_gemm(a.double(), b, torch.tensor(1.0), s)
     with pytest.raises(ValueError, match="s_a"):
         int8_gemm(a, b, 1.0, s)
     with pytest.raises(TypeError, match="float32"):
@@ -429,9 +447,15 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("m,n,k", [(25, 256, 17664), (1, 52, 256), (1600, 256, 2304),
                                    (102400, 256, 768), (25, 64, 3)])
 def test_gemm_plan_covers_k_once(m, n, k):
-    for tile in (INT8_TILE, W8_TILE):
-        splits, kper = gemm_plan(m, n, k, tile)
-        ktiles = -(-k // tile[2])
-        assert splits >= 1 and (splits - 1) * kper < ktiles <= splits * kper
-        if splits > 1:
-            assert kper >= 2 and splits * -(-m // tile[0]) * -(-n // tile[1]) <= 2 * 132
+    for op in ("int8", "w8"):
+        for tma in (True, False):
+            plan = gemm_plan(m, n, k, op, tma)
+            bk = KSTAGE[op] if tma else STAGED_TILE[op][2]
+            bm = 64 * plan.nc if tma else STAGED_TILE[op][0]
+            ktiles = -(-k // bk)
+            assert plan.route == ("tma" if tma else "staged")
+            assert plan.splits >= 1 and (plan.splits - 1) * plan.kper < ktiles
+            assert ktiles <= plan.splits * plan.kper
+            if plan.splits > 1:
+                assert tma and plan.kper >= SPLIT_STAGES
+                assert plan.splits * -(-m // bm) * -(-n // plan.bn) <= 2 * 132
