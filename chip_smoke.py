@@ -108,6 +108,27 @@ the drift check with int8 state; int8 state a quarter of fp32's bytes); ``servin
 beside the plain fp32 and bf16 cells at the same stream counts;
 ``quant_ab``; and the CLI's ``benchmark`` with ``processor.quantize``.
 
+The window models follow, at the full width of their as_is configs
+(``configs/pku-mmd/as_is/{stgcn,aagcn,mstcn,msgcn}.json``, W = 50, 52
+classes): gcn_core and gcn_grads against their plain versions at ST-GCN's
+shapes (R = windows x 50, 25 and 13 frames; C 64 -> 256) with their times
+beside the bounds (``window_*`` keys of the kernels line); ST-GCN's batch
+form of ST_WINDOWS windows in fp32 and bf16 (exactly 9 gcn_core, against
+the all-plain run, windows/s, peak memory); its window cell through
+``serving.py --model st-gcn``, plain and with ``--quant int8-static`` in
+fp32 and bf16 state, and as a CUDA-graph replay; the int8 window
+cell in dynamic, static and w8 modes with fp32 and bf16 state (equal to its
+plain version, one product a site a step, tracking the fp32 cell, int8
+state refused, graph replays); one train step each of ST-GCN and MS-GCN
+(18 gcn_core and 9 gcn_grads), AA-GCN and MS-TCN (no kernel) with
+first-step gradients against float64 (worst and median parameter, beside
+the float64 step's own sensitivity to a 2^-24 perturbation) and peak
+memory, AA-GCN's forward logits against float64 with its attention's
+saturation, ST-GCN's falling
+loss and ``train_throughput --model st-gcn``; and the CLI: ST-GCN trains,
+resumes, tests and benchmarks with the int8 rows, MS-GCN, AA-GCN and MS-TCN
+train and test.
+
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -155,6 +176,26 @@ CO_CONFIG = "configs/pku-mmd/ln/costgcn.json"  # CoST-GCN9, LayerNorm
 CO_CONFIG_69 = "configs/pku-mmd/ln/costgcn_69.json"  # Gamma = 69, dilation to 4
 CO_STREAM = 320  # streamed == batch: frames, past the deepest FIFO (273 at Gamma = 69)
 B_PEAK_CO = {9: 1024, 69: 64}  # streams of the CoST-GCN serving cell, peak memory
+# The window models at the full width of their as_is configs (52 classes,
+# W = 50). ST-GCN's batch form: the ST_WINDOWS windows of one capture; its
+# window cell through serving.py at ST_STREAM_B streams x ST_STREAM_FRAMES
+# frames, the B = 1 cell also replayed from a CUDA graph over
+# ST_GRAPH_FRAMES frames; AA-GCN's forward of AA_WINDOWS windows; the
+# Trainer steps on synthetic trials of WIN_TRIAL frames (one chunk of
+# WIN_TRIAL windows, the configs setting no segment), MS-TCN's on one
+# trial of MT_TRIAL frames; WIN_EPOCHS epochs of WIN_TRIALS trials, an Adam
+# step every WIN_BS, for the falling loss; the int8 window cell at
+# ST_INT8_B streams x ST_INT8_L frames.
+ST_CONFIG = "configs/pku-mmd/as_is/stgcn.json"
+AA_CONFIG = "configs/pku-mmd/as_is/aagcn.json"
+MT_CONFIG = "configs/pku-mmd/as_is/mstcn.json"
+MG_CONFIG = "configs/pku-mmd/as_is/msgcn.json"
+ST_WINDOWS, AA_WINDOWS = 1024, 256
+ST_STREAM_B, ST_STREAM_FRAMES, ST_GRAPH_FRAMES = (1, 64), 64, 256
+WIN_TRIAL, WIN_TRIALS, WIN_BS, WIN_EPOCHS, MT_TRIAL = 256, 4, 2, 2, 1024
+ST_INT8_B, ST_INT8_L = 4, 64
+WIN_INT8_RUNS = [(mode, sd) for mode in ("dynamic", "static", "w8")
+                 for sd in ("float32", "bfloat16")]
 CO_PEAK_FRAMES = 32  # frames streamed at B_PEAK_CO
 DRIFT_FRAMES, DRIFT_B = 256, 4  # check_stream_drift: frames x streams
 # CoST-GCN training: synthetic trials of CO_TRAIN_LEN frames in one L_TRAIN
@@ -265,6 +306,31 @@ TOL_GRAD_SG = 1.5e-2
 # from float64 on single parameters, as the kernel run is; the training
 # phase prints how many parameters each run would fail such a check on.
 TOL_GRAD_CO = {9: 1.04e-3, 69: 1.70e-3}
+# The window models' first-step gradients against float64, by family, set
+# from their first runs on the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md,
+# runs DA1, DA2). No fp32 run of an ST-GCN step of 256 windows is within
+# 1e-3 of float64: the kernel run was 1.067e-3 from it at worst
+# (layers.2.tcn_norm.bias), the fp32 all-plain run 1.923e-3
+# (layers.6.norm.bias), so CoST-GCN's 1.04e-3 failed; MS-GCN, whose
+# generator is the same ST-GCN, read 1.082e-3 and 1.922e-3. Their bound is
+# about twice the kernel run's reading, above the all-plain run's. AA-GCN
+# and MS-TCN launch no kernel: their runs equal the fp32 all-plain runs bit
+# for bit (checked), 8.965e-2 (AA-GCN, joint_stream.norm_in.scale) and
+# 4.830e-7 (MS-TCN) from float64; their bounds are twice those readings.
+# AA-GCN's reading is the function's own conditioning, not fp32's sums: the
+# float64 step itself moves 6.102e-2 on that leaf (5.660e-3 at the median
+# leaf) when its weights and input are scaled by 1 +- 2^-24, fp32's unit
+# roundoff, and 25-79 % of its attention rows are saturated (run DD). The
+# run's own bound (GRAD_VS_PLAIN times the fp32 all-plain run's worst, plus
+# TOL_FORMS) is checked beside. The median parameter's error is held too,
+# at twice run DD's reading (kernels 2.859e-4 ST-GCN, 3.766e-7 MS-GCN,
+# whose median falls among its refinement stages, 1.042e-2 AA-GCN, 1.315e-7
+# MS-TCN; the fp32 all-plain runs 3.639e-4, 3.767e-7, 1.045e-2, 1.318e-7),
+# and AA-GCN's forward logits of AA_WINDOWS windows at twice their reading
+# from float64 (3.406e-5, DD).
+TOL_GRAD_WIN = {"st-gcn": 2.2e-3, "ms-gcn": 2.2e-3, "aa-gcn": 0.18, "ms-tcn": 1e-6}
+TOL_GRAD_WIN_MEDIAN = {"st-gcn": 6e-4, "ms-gcn": 8e-7, "aa-gcn": 2.1e-2, "ms-tcn": 2.7e-7}
+TOL_AA_FORWARD = 7e-5
 # a CLI run resumed from epoch-0 against the unbroken run (parameters and
 # Adam moments, relative to max(1, max|ref|)); the CUDA graph's logits
 # against graph-free streaming (cuBLAS may pick another algorithm under
@@ -843,13 +909,14 @@ def worst_grad_err(got, ref):
     return max((grad_err(got[k], ref[k]), k) for k in ref)
 
 
-def first_step_grads(trainer, batch, divisors=None):
+def first_step_grads(trainer, batch, divisors=None, generator=None):
     """The parameter gradients of one grad step on ``batch``, cleared after.
-    ``divisors`` defaults to the batch size for each stacked trial."""
+    ``divisors`` defaults to the batch size for each stacked trial; dropout
+    draws from ``generator``."""
     trainer.optimizer.zero_grad(set_to_none=True)
     if divisors is None:
         divisors = [float(trainer.opt.batch_size)] * batch[0].shape[0]
-    trainer.grad_step(*batch, divisors)
+    trainer.grad_step(*batch, divisors, generator)
     grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
     trainer.optimizer.zero_grad(set_to_none=True)
     return grads
@@ -2647,6 +2714,632 @@ def int8_serving_phase(data_dir):
     return parts
 
 
+# ----------------------------------------------------------- window models
+
+
+def window_layer_rows(model, windows, w=50):
+    """``(rows, C_in, C_out)`` of each ST-GCN layer's graph conv over
+    ``windows`` windows of ``w`` frames: the layer's input frames (before
+    its stride) times the windows."""
+    rows, l = [], w
+    for layer, cin, cout in zip(model.layers, model.in_ch, model.out_ch):
+        rows.append((windows * l, cin, cout))
+        l = -(-l // layer.stride)
+    return rows
+
+
+def window_kernel_phase(recs):
+    """gcn_core at the shapes of ST-GCN's batch form of ST_WINDOWS windows
+    and gcn_grads at those of one train step of WIN_TRIAL windows (R =
+    windows x 50, 25 and 13 frames; C 64 -> 256), against their plain
+    versions in fp32 and bf16, timed beside the plain version, the einsum
+    yardstick and the bound. The sums over the 9 layers go into the kernels
+    line as ``window_*`` keys of the two kernels."""
+    import torch
+
+    from stgx_torch.config import build_model
+    from stgx_torch.ops.gcn_core import gcn_core, gcn_core_plain
+    from stgx_torch.ops.gcn_grads import gcn_grads, gcn_grads_plain
+
+    model = build_model(load_cfg(ST_CONFIG), NUM_CLASSES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    v, p = model.num_joints, model.partitions
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    for name, windows in (("gcn_core", ST_WINDOWS), ("gcn_grads", WIN_TRIAL)):
+        print(f"{name} vs plain at ST-GCN's shapes, {windows} windows", flush=True)
+        sums = {}
+        for rows, cin, cout in window_layer_rows(model, windows):
+            A = (model.A * (1.0 + 0.1 * rnd(p, v, v))).contiguous()
+            W = rnd(p, cin, cout, scale=cin**-0.5)
+            x32, g32 = rnd(rows, v, cin), rnd(rows, v, cout)
+            if name == "gcn_core":
+                def kern(x, g):
+                    return gcn_core(x, A, W)
+
+                def plain(x, g):
+                    return gcn_core_plain(x, A, W)
+
+                def lib():
+                    return torch.einsum("rvc,pvw,pcd->rwd", x32, A, W)
+
+                flops = 2 * rows * v * p * cin * (v + cout)
+                values = rows * v * (cin + cout) + p * v * v + p * cin * cout
+            else:
+                def kern(x, g):
+                    return gcn_grads(x, g, A, W)
+
+                def plain(x, g):
+                    return gcn_grads_plain(x, g, A, W)
+
+                def lib():
+                    return (torch.einsum("rvc,pvw,rwd->pcd", x32, A, g32),
+                            torch.einsum("rvc,rwd,pcd->pvw", x32, g32, W))
+
+                flops = 4 * rows * p * v * cin * (v + cout)
+                values = rows * v * (cin + cout) + 2 * (p * v * v + p * cin * cout)
+            for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+                x, g = x32.to(dt), g32.to(dt)
+                err = compare(name, (rows, v, cin, cout), lambda: kern(x, g),
+                              lambda: plain(x, g), str(dt)[6:], tol)
+                if dt == torch.float32:
+                    sums["max_abs_err"] = max(sums.get("max_abs_err", 0.0), err)
+            b = bound(4 * values, flops)
+            for key, val in (("ms", time_ms(lambda: kern(x32, g32))),
+                             ("plain_ms", time_ms(lambda: plain(x32, g32), reps=3, warm=1)),
+                             ("library_ms", time_ms(lib, reps=3, warm=1)),
+                             ("bound_ms", b[0]), ("_tb", b[1]), ("_to", b[2])):
+                sums[key] = sums.get(key, 0.0) + val
+        by = "bytes" if sums["_tb"] >= sums["_to"] else "operations"
+        print(f"  {name} over ST-GCN's 9 layers, {windows} windows, fp32: kernel "
+              f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, einsum "
+              f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms ({by}, "
+              f"{100 * sums['bound_ms'] / sums['ms']:.1f} % of it)", flush=True)
+        r = recs[name]
+        r["max_abs_err"] = max(r["max_abs_err"], sums.pop("max_abs_err"))
+        r.update({f"window_{k}": val for k, val in sums.items() if not k.startswith("_")})
+        r["window_bound_by"] = by
+        r["window_windows"] = windows
+
+
+def window_input(model, frames, seed):
+    """The windows of one capture of ``frames`` normal frames: ``(frames,
+    50, V, C)`` on the card."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.parallel.segments import sliding_windows
+
+    capture = torch.tensor(np.random.default_rng(seed).normal(
+        size=(1, frames, model.num_joints, model.in_feat)), dtype=torch.float32, device="cuda")
+    return sliding_windows(capture, 50)[0]
+
+
+def stgcn_forward_phase():
+    """ST-GCN's batch form over ST_WINDOWS windows, fp32 and bf16, with the
+    counters at zero: exactly 9 gcn_core launches a forward; fp32 logits
+    against the all-plain run (TOL_MODEL), bf16 within GRAD_VS_PLAIN times
+    the bf16 all-plain run's own distance from the fp32 all-plain run;
+    windows/s and peak device memory. Returns the launch counts."""
+    import copy
+
+    import torch
+
+    from stgx_torch.config import build_model
+
+    model = build_model(load_cfg(ST_CONFIG), NUM_CLASSES)
+    n = len(model.layers)
+    windows32 = window_input(model, ST_WINDOWS, SEED + 32)
+    none = {k: 0 for k in all_counts()}
+    parts = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = f"ST-GCN batch form {str(dt)[6:]}"
+        m = model if dt == torch.float32 else copy.deepcopy(model).to(dt)
+        x = windows32.to(dt)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_all_counts()
+            y = m(x)
+            torch.cuda.synchronize()
+            parts[name] = all_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check(parts[name] == {**none, "gcn_core": n},
+                  f"{name} launched {parts[name]}, want {n} gcn_core")
+            with plain_ops():
+                y_plain = m(x)
+            check(all_counts() == parts[name], "the plain reference run launched a kernel")
+            check(y.shape == (ST_WINDOWS, NUM_CLASSES), f"{name}: shape {tuple(y.shape)}")
+            check(bool(torch.isfinite(y.float()).all()), f"{name}: non-finite logits")
+            err, rel = rel_err(y, y_plain)
+            ms = time_ms(lambda: m(x), reps=5, warm=1)
+            with plain_ops():
+                plain_ms = time_ms(lambda: m(x), reps=3, warm=1)
+        if dt == torch.float32:
+            y_plain32, tol, against = y_plain, TOL_MODEL, ""
+        else:
+            rel_plain = rel_err(y_plain, y_plain32)[1]
+            err, rel = rel_err(y, y_plain32)
+            tol = GRAD_VS_PLAIN * rel_plain
+            against = (f" (the bf16 all-plain run {rel_plain:.3e} from it, the kernel run "
+                       f"{rel_err(y, y_plain)[1]:.3e} from the bf16 all-plain run)")
+        print(f"{name} vs fp32 all-plain: max abs err {err:.3e} (relative {rel:.3e}, "
+              f"tolerance {tol:.3g}){against}; forward of {ST_WINDOWS} windows {ms:.3f} ms "
+              f"({ST_WINDOWS / ms * 1e3:.0f} windows/s), all-plain {plain_ms:.3f} ms; peak "
+              f"device memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above "
+              f"the model and input)", flush=True)
+        check(rel <= tol, f"{name}: relative error {rel:.3e}")
+    return parts
+
+
+def window_serving_phase():
+    """ST-GCN's window cell with the counters at zero: ``serving.py --model
+    st-gcn`` at ST_STREAM_B streams (9 gcn_core a step), p50 / p99, and the
+    same with ``--quant int8-static`` in fp32 and bf16 state (one int8_gemm
+    a site for the calibration's site-listing step and each of its frames,
+    then one a site a step); the B = 1 cell against the all-plain cell; the
+    B = 1 cell captured in a CUDA graph and replayed (``graph_frame_ms``).
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.bench import serving
+    from stgx_torch.bench.streaming import graph_frame_ms, measure_stream_latency
+    from stgx_torch.config import build_model
+
+    none = {k: 0 for k in all_counts()}
+    parts = {}
+    n = 9
+    reset_all_counts()
+    records = serving.main(["--model", "st-gcn", "--batches", ",".join(map(str, ST_STREAM_B)),
+                            "--frames", str(ST_STREAM_FRAMES)])
+    parts["serving"] = all_counts()
+    steps = len(ST_STREAM_B) * (serving.WARMUP_STEPS + ST_STREAM_FRAMES)
+    check(parts["serving"] == {**none, "gcn_core": n * steps},
+          f"ST-GCN serving launched {parts['serving']}, want {n * steps} gcn_core")
+    for rec in records:
+        print(f"ST-GCN window cell serving B={rec['streams']}: step p50 {rec['step_ms_p50']:.4f} "
+              f"ms, p99 {rec['step_ms_p99']:.4f} ms, state {rec['state_bytes'] / 2**20:.2f} MiB, "
+              f"peak {rec['peak_mib']:.1f} MiB, real time {rec['realtime']}", flush=True)
+    model = build_model(load_cfg(ST_CONFIG), NUM_CLASSES)
+    # the int8 window cell's products a step: fcn_in, each layer's residual
+    # conv (where it has one), gcn and tcn, and fcn_out
+    sites = 2 + sum(2 + hasattr(layer, "res_kernel") for layer in model.layers)
+    for variant, argv in (("int8 fp32 state", []),
+                          ("int8 bf16 state", ["--state-dtype", "bfloat16"])):
+        reset_all_counts()
+        records = serving.main(["--model", "st-gcn", "--quant", "int8-static", "--batches",
+                                ",".join(map(str, ST_STREAM_B)), "--frames",
+                                str(ST_STREAM_FRAMES)] + argv)
+        got = parts[f"serving {variant}"] = all_counts()
+        want = {**none, "int8_gemm": sites * (serving.CALIB_FRAMES + 1 + steps)}
+        check(got == want, f"ST-GCN serving {variant} launched {got}, want {want}")
+        for rec in records:
+            check(not rec.get("oom"), f"ST-GCN serving {variant}: out of memory {rec}")
+            print(f"ST-GCN window cell serving {variant} B={rec['streams']}: step p50 "
+                  f"{rec['step_ms_p50']:.4f} ms, p99 {rec['step_ms_p99']:.4f} ms, state "
+                  f"{rec['state_bytes'] / 2**20:.2f} MiB, peak {rec['peak_mib']:.1f} MiB, "
+                  f"real time {rec['realtime']}", flush=True)
+
+    frames = torch.tensor(np.random.default_rng(SEED + 33).normal(
+        size=(ST_GRAPH_FRAMES, model.num_joints, model.in_feat)), dtype=torch.float32,
+        device="cuda")
+    reset_all_counts()
+    _, p50, p99, logits = measure_stream_latency(model, frames[:ST_STREAM_FRAMES])
+    parts["cell"] = all_counts()
+    with plain_ops():
+        _, plain_p50, _, logits_plain = measure_stream_latency(model, frames[:ST_STREAM_FRAMES])
+    err, rel = rel_err(torch.as_tensor(logits), torch.as_tensor(logits_plain))
+    reset_all_counts()
+    replay = graph_frame_ms(model, frames)
+    parts["graph"] = all_counts()
+    print(f"ST-GCN window cell B=1 x {ST_STREAM_FRAMES} frames vs all-plain: max abs err "
+          f"{err:.3e} (relative {rel:.3e}, tolerance {TOL_MODEL:g}); step p50 {p50:.4f} ms, "
+          f"p99 {p99:.4f} ms, all-plain p50 {plain_p50:.4f} ms; the cell replayed from a "
+          f"CUDA graph over {ST_GRAPH_FRAMES} frames: {replay:.4f} ms a frame "
+          f"(graph_frame_ms)", flush=True)
+    check(rel <= TOL_MODEL and bool(np.isfinite(logits).all()),
+          f"ST-GCN window cell: relative error {rel:.3e}")
+    check(parts["graph"]["gcn_core"] > 0, "the graph replay launched no gcn_core")
+    return parts
+
+
+def window_int8_phase():
+    """The int8 ST-GCN window cell at ST_INT8_B streams x ST_INT8_L frames
+    after a calibration (serving.py's 256 frames), in dynamic, static and w8
+    modes with fp32 and bf16 state: one int8_gemm (w8: w8_gemm) a site a
+    step and nothing else, the cell on the plain products equal bit for bit
+    (w8 within TOL_MODEL), tracking the fp32 window cell (the int8 cells'
+    bounds: mean relative distance < 0.2 with fp32 state, < 0.15 for bf16
+    state against the same mode's fp32-state cell, top-1 agreement
+    > INT8_TOP1); int8 state refused; the B = 1 cell replayed from a CUDA
+    graph in each mode (``measure_quant``). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import stgx_torch.bench.quant as tq
+    from stgx_torch.bench import serving
+    from stgx_torch.bench.streaming import init_window_state, measure_quant, window_step
+    from stgx_torch.config import build_model
+    from stgx_torch.ops.int8_gemm import int8_gemm_plain, w8_gemm_plain
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    model = build_model(load_cfg(ST_CONFIG), NUM_CLASSES)
+    quantize, qstep, qinit = tq.QUANT_MODELS["st-gcn"]
+    qparams = quantize(model)
+    none = {k: 0 for k in all_counts()}
+    parts = {}
+    reset_all_counts()
+    calib = serving.calibration_frames(model)
+    scales = tq.calibrate_scales(model, qparams, calib, "st-gcn")
+    parts["calibration"] = all_counts()
+    sites = list(scales)
+    x = torch.tensor(np.random.default_rng(SEED + 34).normal(
+        size=(ST_INT8_L, ST_INT8_B, model.num_joints, model.in_feat)),
+        dtype=torch.float32, device="cuda")
+    reset_all_counts()
+    with torch.inference_mode():
+        y32 = stream_logits(lambda st, x_t: window_step(model, st, x_t),
+                            init_window_state(model, ST_INT8_B), x)
+    parts["fp32 cell"] = all_counts()
+    check(parts["fp32 cell"] == {**none, "gcn_core": 9 * ST_INT8_L},
+          f"ST-GCN fp32 window cell launched {parts['fp32 cell']}")
+    runs = {}
+    for mode, sd in WIN_INT8_RUNS:
+        kernel = "w8_gemm" if mode == "w8" else "int8_gemm"
+        cell = f"ST-GCN int8 window cell {mode} {sd} state"
+
+        def step(st, x_t):
+            return qstep(model, qparams, st, x_t)
+
+        with tq.quant_mode(mode, scales if mode == "static" else None):
+            reset_all_counts()
+            y = stream_logits(step, qinit(model, ST_INT8_B, dtypes[sd]), x)
+            parts[cell] = all_counts()
+            routes = route_counts()
+            with mock.patch.object(tq, "int8_gemm", int8_gemm_plain), \
+                    mock.patch.object(tq, "w8_gemm", w8_gemm_plain):
+                y_plain = stream_logits(step, qinit(model, ST_INT8_B, dtypes[sd]), x)
+        want = {**none, kernel: len(sites) * ST_INT8_L}
+        check(parts[cell] == want, f"{cell} launched {parts[cell]}, want {want}")
+        check(bool(torch.isfinite(y).all()), f"{cell}: non-finite logits")
+        err, rel = rel_err(y, y_plain)
+        same = torch.equal(y, y_plain)
+        print(f"{cell}, {ST_INT8_B} x {ST_INT8_L} frames: {len(sites)} {kernel} a step (by "
+              f"route {json.dumps({k: v for k, v in routes.items() if v})}); kernels vs plain "
+              f"versions: {'equal' if same else 'differ'} (max abs err {err:.3e}, relative "
+              f"{rel:.3e})", flush=True)
+        if mode == "w8":
+            check(rel <= TOL_MODEL, f"{cell}: relative error {rel:.3e} > {TOL_MODEL}")
+        else:
+            check(same, f"{cell}: not the plain versions' bits ({err:.3e})")
+        runs[mode, sd] = y
+    for (mode, sd), y in runs.items():
+        ref, bound_rel = ((runs[mode, "float32"], 0.15) if sd != "float32" else (y32, 0.2))
+        agree, rel = track(y, ref)
+        print(f"ST-GCN int8 window cell {mode} {sd} state against the "
+              f"{'fp32-state int8' if sd != 'float32' else 'fp32'} cell: top-1 agreement "
+              f"{agree:.4f} (bound > {INT8_TOP1}), mean relative distance {rel:.4f} (bound "
+              f"< {bound_rel})", flush=True)
+        check(agree > INT8_TOP1 and rel < bound_rel, f"ST-GCN int8 {mode} {sd}: {agree}, {rel}")
+    try:
+        qinit(model, 1, torch.int8)
+    except ValueError as e:
+        print(f"ST-GCN int8 window cell with int8 state refused: {e}", flush=True)
+    else:
+        raise SmokeFailure("the ST-GCN int8 window cell took int8 state")
+    frames = x[:, 0]
+    replays = {}
+    reset_all_counts()
+    for mode, sd in WIN_INT8_RUNS:
+        replays[f"{mode} {sd}"] = measure_quant(model, "st-gcn", qparams, frames, mode=mode,
+                                                scales=scales if mode == "static" else None,
+                                                state_dtype=dtypes[sd])
+    parts["graph replays"] = all_counts()
+    print(f"ST-GCN int8 window cell B=1 replayed from a CUDA graph over {ST_INT8_L} frames, "
+          f"ms a frame by mode and state: {json.dumps(replays)}", flush=True)
+    check(all(v > 0 for v in replays.values()), f"int8 window replays {replays}")
+    return parts
+
+
+def attention_rows(model, x):
+    """For each AA-GCN attention ``softmax(θᵀφ)`` of a forward on ``x``, in
+    call order: (share of its rows whose maximum is above 0.99, the median
+    over rows of the scores' spread, max - min)."""
+    import torch
+
+    from stgx_torch.models import aagcn
+
+    rows = []
+    softmax = torch.softmax
+
+    def observed(scores, dim):
+        p = softmax(scores, dim=dim)
+        if scores.dim() == 4:  # (N, P, V, V): an attention, not an output adapter
+            spread = scores.amax(dim) - scores.amin(dim)
+            rows.append(((p.amax(dim) > 0.99).float().mean().item(),
+                         spread.float().median().item()))
+        return p
+
+    with torch.inference_mode(), mock.patch.object(aagcn.torch, "softmax", observed):
+        model(x)
+    return rows
+
+
+def float64_step_grads(trainer, batch, divisor, seed, perturb=0.0):
+    """One Trainer grad step's parameter gradients in float64, for any kind:
+    a copy of the model and the batch in float64 through the all-plain path,
+    with the loss and divisor of ``first_step_grads`` and dropout drawn from
+    a generator seeded ``seed``. ``perturb``: every weight and input value
+    first scaled by ``1 ± perturb`` (signs drawn from a generator seeded
+    ``seed``), to read the step's own sensitivity to rounding of that size."""
+    import copy
+
+    import torch
+
+    model = copy.deepcopy(trainer.model).double()
+    x, y, mask = batch
+    x = x.double()
+    if perturb:
+        signs = torch.Generator(device="cuda").manual_seed(seed)
+
+        def jiggle(t):
+            r = torch.randint(0, 2, t.shape, generator=signs, device=t.device) * 2 - 1
+            t.mul_(1 + perturb * r.to(t.dtype))
+
+        with torch.no_grad():
+            for p in model.parameters():
+                jiggle(p)
+            jiggle(x)
+    window = trainer.kind.startswith("window")
+    m = mask[:, None].expand(x.shape[0], x.shape[1]) if window else mask
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with plain_ops():
+        out = model(x, mask=m, train=True, generator=gen)
+        if trainer.kind == "window":
+            out = out[None]
+        ce, mse = trainer.loss(out, *trainer._series(y, mask))
+        ((ce + mse) / divisor).backward()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    check(all(g.dtype == torch.float64 for g in grads.values()),
+          "the float64 witness lost its precision")
+    return grads
+
+
+def window_grad_check(tag, name, trainer, batch, divisor, want):
+    """One grad step of ``trainer`` on ``batch`` (its dropout from a seeded
+    generator): exact launches ``want``, peak device memory, first-step
+    gradients against the all-plain run in float64 (the fp32 all-plain
+    run's own distance beside; the biases that feed a batch norm held to
+    zero at the model's gradient scale). Returns the launch counts."""
+    import torch
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED + 35)
+
+    t0 = time.perf_counter()
+    exact = float64_step_grads(trainer, batch, divisor, SEED + 35)
+    t64 = time.perf_counter() - t0
+    before = all_counts()
+    with plain_ops():
+        ref = first_step_grads(trainer, batch, divisor, gen())
+    check(all_counts() == before, "the all-plain training step launched a kernel")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    got = first_step_grads(trainer, batch, divisor, gen())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    full = {**{k: 0 for k in launched}, **want}
+    unit = "windows" if trainer.kind.startswith("window") else "trials"
+    print(f"{tag} train step ({batch[0].shape[0]} {unit} of {batch[0].shape[1]} frames): "
+          f"launches {json.dumps(launched)}; peak device memory {peak / 2**20:.1f} MiB; step "
+          f"{secs:.3f} s (first call); the float64 witness took {t64:.1f} s", flush=True)
+    check(launched == full, f"{tag} step launched {launched}, want {full}")
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          f"{tag}: non-finite gradients")
+    # zero in exact arithmetic: a bias added just before a batch norm (the
+    # residual 1x1 conv's, the temporal conv's) and AA-GCN's phi bias (it
+    # adds the same score to every column of the attention's softmax)
+    zero = sorted(k for k in exact if k.endswith(("res_bias", "tcn_bias", "phi_bias")))
+    scale = max(g.abs().max().item() for g in exact.values())
+    if zero:
+        noise = max((got[k].abs().max().item() / scale, k) for k in zero)
+        print(f"{tag}: {len(zero)} gradients that are zero in exact arithmetic under "
+              f"BatchNorm, largest {noise[0]:.3e} of the model's largest gradient ({noise[1]}, "
+              f"tolerance {TOL_GRAD:g})", flush=True)
+        check(noise[0] <= TOL_GRAD, f"{tag}: gradient {noise[1]} is {noise[0]:.3e}")
+    got, ref, exact = ({k: v for k, v in d.items() if k not in zero} for d in (got, ref, exact))
+    worst, plain32 = worst_grad_err(got, exact), worst_grad_err(ref, exact)
+    own = GRAD_VS_PLAIN * plain32[0] + TOL_FORMS
+    print(f"{tag}: first-step gradients vs all-plain float64, worst relative error "
+          f"{worst[0]:.3e} ({worst[1]}, tolerance {TOL_GRAD_WIN[name]:g}, and this run's "
+          f"{own:.3e}); the fp32 all-plain run's {plain32[0]:.3e} ({plain32[1]}); kernels vs "
+          f"fp32 all-plain {worst_grad_err(got, ref)[0]:.3e}", flush=True)
+    errs = sorted(((grad_err(got[k], exact[k]), grad_err(ref[k], exact[k]), k)
+                   for k in exact), reverse=True)
+    for e_k, e_p, k in errs[:5]:
+        print(f"  {k}: kernels {e_k:.3e}, fp32 all-plain {e_p:.3e} from float64", flush=True)
+    median, median32 = errs[len(errs) // 2][0], sorted(e for _, e, _ in errs)[len(errs) // 2]
+    # the float64 step's own sensitivity: its gradients again after every
+    # weight and input value was scaled by 1 +- 2^-24, fp32's unit roundoff
+    moved = float64_step_grads(trainer, batch, divisor, SEED + 35, perturb=2.0 ** -24)
+    moved = {k: moved[k] for k in exact}
+    sens = sorted(grad_err(moved[k], exact[k]) for k in exact)
+    print(f"{tag}: median parameter {median:.3e} from float64 (tolerance "
+          f"{TOL_GRAD_WIN_MEDIAN[name]:g}; the fp32 all-plain run's {median32:.3e}); the float64 "
+          f"step after a relative 2^-24 perturbation of its weights and input moved "
+          f"{sens[-1]:.3e} at worst, {sens[len(sens) // 2]:.3e} at the median, "
+          f"{grad_err(moved[worst[1]], exact[worst[1]]):.3e} on {worst[1]}", flush=True)
+    check(median <= TOL_GRAD_WIN_MEDIAN[name],
+          f"{tag}: the median parameter's gradient is off by {median:.3e}")
+    check(worst[0] <= min(TOL_GRAD_WIN[name], own),
+          f"{tag}: gradient {worst[1]} off by {worst[0]:.3e}")
+    check(want or all(torch.equal(got[k], ref[k]) for k in got),
+          f"{tag}: a path without kernels differs from its all-plain run")
+    return launched
+
+
+def window_training_phase(data_dir):
+    """The window models' training paths at full width, each with the
+    counters at zero. ST-GCN (``window``): one chunk step of WIN_TRIAL
+    windows (gcn_core for y and gx, gcn_grads once a layer), first-step
+    gradients against float64, then WIN_EPOCHS epochs of WIN_TRIALS trials
+    with a falling loss, and ``train_throughput --model st-gcn`` in fp32 and
+    bf16 (windows/s). MS-GCN (``window_ms``): one chunk step, the same
+    launches, gradients against float64. AA-GCN (``window``): its forward of
+    AA_WINDOWS windows and one step, no kernel launched. MS-TCN
+    (``frame_ms``): one step on a trial of MT_TRIAL frames, gradients
+    against float64, no kernel launched. Returns the launch counts."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from stgx_torch.bench import train_throughput
+    from stgx_torch.config import build_model
+    from stgx_torch.data import SkeletonDirDataset, class_distribution
+    from stgx_torch.data.synth import generate
+    from stgx_torch.parallel.loop import MODEL_KIND, OptimizerConfig, Trainer
+    from stgx_torch.utils import LOSS
+
+    def dataset(sub, trials, length, seed):
+        d = os.path.join(data_dir, sub)
+        generate(d, skeleton="pku-mmd", num_classes=NUM_CLASSES, in_feat=3, num_train=trials,
+                 num_val=0, min_len=length, max_len=length, seed=seed)
+        return SkeletonDirDataset(os.path.join(d, "train", "features"),
+                                  os.path.join(d, "train", "labels"))
+
+    windows = dataset("win", WIN_TRIALS, WIN_TRIAL, SEED + 36)
+    dist = class_distribution(windows, NUM_CLASSES)
+    parts = {}
+    n = 9
+    kernels = {"gcn_core": 2 * n, "gcn_grads": n}
+    for tag, config in (("ST-GCN", ST_CONFIG), ("MS-GCN", MG_CONFIG), ("AA-GCN", AA_CONFIG),
+                        ("MS-TCN", MT_CONFIG)):
+        cfg = load_cfg(config)
+        name = cfg["processor"]["model"]
+        ds = windows if name != "ms-tcn" else dataset("mstcn", 1, MT_TRIAL, SEED + 37)
+        trainer = Trainer(model=build_model(cfg, NUM_CLASSES), kind=MODEL_KIND[name],
+                          loss=LOSS[name](dist),
+                          opt=OptimizerConfig(learning_rate=cfg["optimizer"]["learning_rate"],
+                                              batch_size=WIN_BS, seed=SEED),
+                          receptive_field=cfg["arch"]["receptive_field"],
+                          bucket=WIN_TRIAL if name != "ms-tcn" else MT_TRIAL)
+        chunks = trainer.chunks(*trainer.prepare(*ds[0]))
+        check(len(chunks) == 1, f"{tag}: {len(chunks)} chunks, want one")
+        if name == "aa-gcn":
+            x = window_input(trainer.model, AA_WINDOWS, SEED + 38)
+            with torch.inference_mode():
+                reset_all_counts()
+                y = trainer.model(x)
+                torch.cuda.synchronize()
+                parts[f"{tag} forward"] = all_counts()
+                ms = time_ms(lambda: trainer.model(x), reps=3, warm=1)
+            print(f"AA-GCN forward of {AA_WINDOWS} windows: {ms:.3f} ms "
+                  f"({AA_WINDOWS / ms * 1e3:.0f} windows/s); launches "
+                  f"{json.dumps(parts[f'{tag} forward'])}", flush=True)
+            check(sum(parts[f"{tag} forward"].values()) == 0,
+                  f"AA-GCN's per-sample graph conv reached a kernel: {parts[f'{tag} forward']}")
+            check(y.shape == (AA_WINDOWS, NUM_CLASSES) and bool(torch.isfinite(y).all()),
+                  f"AA-GCN forward: {tuple(y.shape)}")
+            m64 = copy.deepcopy(trainer.model).double()
+            with torch.inference_mode(), plain_ops():
+                y64 = m64(x.double())
+            del m64
+            err, rel = rel_err(y, y64)
+            rows = attention_rows(trainer.model, x)
+            print(f"AA-GCN forward of {AA_WINDOWS} windows vs all-plain float64: max abs err "
+                  f"{err:.3e} (relative {rel:.3e}, tolerance {TOL_AA_FORWARD:g}); attention "
+                  f"softmax rows by layer (joint stream, then bone), share with a maximum > "
+                  f"0.99: {[round(r[0], 4) for r in rows]}, median score spread (max - min "
+                  f"of a row): {[round(r[1], 1) for r in rows]}", flush=True)
+            check(rel <= TOL_AA_FORWARD, f"AA-GCN forward: relative error {rel:.3e} from float64")
+        want = kernels if name in ("st-gcn", "ms-gcn") else {}
+        parts[f"{tag} step"] = window_grad_check(tag, name, trainer, chunks[0],
+                                                 float(WIN_BS), want)
+        if name != "st-gcn":
+            continue
+        ce0 = trainer.evaluate(ds)["ce"]
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with step_launches() as steps:
+            ces = [trainer.train_epoch(ds, epoch)["ce"] for epoch in range(WIN_EPOCHS)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        parts[f"{tag} epochs"] = all_counts()
+        ce1 = trainer.evaluate(ds)["ce"]
+        print(f"{tag}: {WIN_EPOCHS} epochs x {WIN_TRIALS} trials of {WIN_TRIAL} windows in "
+              f"{secs:.2f} s ({WIN_EPOCHS * WIN_TRIALS * WIN_TRIAL / secs:.0f} windows/s, "
+              f"Adam included); epoch CE {np.round(ces, 4).tolist()}; eval CE {ce0:.4f} -> "
+              f"{ce1:.4f}", flush=True)
+        check_steps(tag, steps, kernels)
+        check(np.isfinite(ces).all() and ce1 < ce0, f"{tag}: CE did not fall")
+        smi_now = smi_line()
+        for dtype in ("float32", "bfloat16"):
+            reset_all_counts()
+            rec = train_throughput.main(["--model", "st-gcn", "--trials", str(WIN_TRIAL),
+                                         "--dtype", dtype])
+            parts[f"{tag} throughput {dtype}"] = all_counts()
+            print(f"ST-GCN train step {dtype}, {WIN_TRIAL} windows of 50 frames: p50 "
+                  f"{rec['step_ms_p50']:.3f} ms, {rec['frames_per_s']:.0f} windows/s, "
+                  f"{rec['model_tflops']:.3f} model TFLOP/s ({100 * rec['peak_share']:.2f} % "
+                  f"of peak), HBM share {100 * rec['hbm_share']:.2f} % [{smi_now}]", flush=True)
+    return parts
+
+
+def cli_window_phase(data_dir):
+    """``stgx_torch.cli`` for the window models on synthetic trials: ST-GCN
+    trains two epochs, resumes from epoch-0, tests on ``final`` and
+    benchmarks (``cli_frame_phase``; every train step 18 gcn_core and 9
+    gcn_grads), its ``latency.csv`` with the int8 columns filled; MS-GCN
+    trains one epoch and tests at full width, AA-GCN and MS-TCN at full
+    width on fewer, shorter trials. Returns the launch counts."""
+    n = 9
+    want = {"gcn_core": 2 * n, "gcn_grads": n}
+    parts = {}
+    st_dir = os.path.join(data_dir, "st")
+    reset_all_counts()
+    for k, v in cli_frame_phase(st_dir, ST_CONFIG, "st-gcn", want, SEED + 40)[0].items():
+        parts[f"st-gcn {k}"] = v
+    # cli_frame_phase counts the graph-conv kernels; the benchmark's int8
+    # rows launched the products
+    parts["st-gcn benchmark int8"] = {k: n for k, n in all_counts().items()
+                                      if k in _int8_wrappers()}
+    header, row = read_csv(os.path.join(st_dir, "st-gcn", "latency.csv"))
+    cols = dict(zip(header, row))
+    print(f"CLI benchmark st-gcn latency.csv: {json.dumps(cols)}", flush=True)
+    check(all(float(cols[k]) > 0 for k in header), f"CLI benchmark st-gcn: {cols}")
+    for tag, config, trials, lengths, seed in (
+            ("ms-gcn", MG_CONFIG, CLI_TRIALS, CLI_LEN, SEED + 41),
+            ("aa-gcn", AA_CONFIG, CLI_SG_TRIALS, CLI_SG_LEN, SEED + 42),
+            ("ms-tcn", MT_CONFIG, CLI_SG_TRIALS, CLI_SG_LEN, SEED + 43)):
+        sub = os.path.join(data_dir, tag)
+        out = os.path.join(sub, "out")
+        base = cli_data(sub, trials, lengths, seed) + ["optimizer.epochs=1",
+                                                       f"processor.out={out}"]
+        reset_all_counts()
+        with step_launches() as steps:
+            run_cli("train", config, *base)
+        parts[f"{tag} train"] = all_counts()
+        check_steps(f"cli {tag} train", steps, want if tag == "ms-gcn" else {})
+        reset_all_counts()
+        run_cli("test", config, *base, f"processor.checkpoint={out}/final")
+        parts[f"{tag} test"] = all_counts()
+        curve = read_csv(os.path.join(out, "train-validation-curve.csv"))
+        top1 = float(read_csv(os.path.join(out, "accuracy.csv"))[1][0])
+        check(top1 == float(curve[-1][7]) and os.path.exists(
+            os.path.join(out, "segmentation-0.csv")), f"cli {tag} test: top1 {top1}, {curve}")
+    return parts
+
+
 # -------------------------------------------------------------- main path
 
 
@@ -2953,6 +3646,34 @@ def run() -> int:
     check(all(v > 0 for v in int8_launched.values()),
           f"an int8 product never launched: {int8_launched}")
 
+    # the window models at their as_is widths: ST-GCN's batch form, window
+    # cell and int8 window cell, the four families' training paths and
+    # their CLI, each with the counters at zero
+    win_launched = {k: 0 for k in all_counts()}
+    t_phase = time.perf_counter()
+    window_kernel_phase(recs)
+    phase_done("gcn_core and gcn_grads at ST-GCN's shapes", t_phase)
+    for name, phase in (("ST-GCN batch form", stgcn_forward_phase),
+                        ("ST-GCN window cell", window_serving_phase),
+                        ("int8 ST-GCN window cell", window_int8_phase),
+                        ("window models training", window_training_phase),
+                        ("CLI window models", cli_window_phase)):
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as data_dir:
+            args = (data_dir,) if phase in (window_training_phase, cli_window_phase) else ()
+            for part in phase(*args).values():
+                win_launched = {k: win_launched[k] + part.get(k, 0) for k in win_launched}
+        phase_done(name, t_phase)
+    reset_all_counts()
+    print(f"launches on the window models' paths (batch form, window cells, int8 window "
+          f"cell, training, CLI): {json.dumps(win_launched)}", flush=True)
+    used = ("gcn_core", "gcn_grads", "int8_gemm", "w8_gemm")
+    check(all(win_launched[k] > 0 for k in used)
+          and all(v == 0 for k, v in win_launched.items() if k not in used),
+          f"the window models' paths launched {win_launched}")
+    launched = {k: launched[k] + win_launched[k] for k in launched}
+    int8_launched = {k: int8_launched[k] + win_launched[k] for k in int8_launched}
+
     # the kernels line
     meta = {
         "gcn_core": ("stgx_torch/csrc/gcn_core.cu", "stgx/ops/pallas_gcn.py:76"),
@@ -2997,7 +3718,11 @@ def run() -> int:
           f"in fp32 or bf16 (quantized inside int8_gemm, widened in w8_gemm; bf16 at the "
           f"sites the tma route takes, all but fcn_in) and the tcn sites' FIFO taps; "
           f"w8's bound: its two TF32 passes; large: the shapes of LARGE_INT8), their "
-          f"launches those of the int8 paths (launches_by_route: tma / staged); "
+          f"launches those of the int8 paths, the int8 ST-GCN window cell's and the CLI's "
+          f"included (launches_by_route: tma / staged); gcn_core and gcn_grads launches "
+          f"include the window models' paths, and window_*: their times summed over "
+          f"ST-GCN's 9 layers at {ST_WINDOWS} windows (gcn_core) and {WIN_TRIAL} windows "
+          f"(gcn_grads); "
           f"gcn_core and gcn_grads "
           f"also give their fp32 route's bound and their bf16 times and bound, rt_fused "
           f"and rt_fused_bwd the port's unfused kernels for the same function "

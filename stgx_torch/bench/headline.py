@@ -75,11 +75,24 @@ LATENCY_NOTE = (
 )
 
 
+def state_tensors(state):
+    """The tensors of a cell's state, a tree of dicts and lists (a list of
+    per-layer FIFO dicts, or a window cell's buffer dict), in a fixed order."""
+    if torch.is_tensor(state):
+        yield state
+    elif isinstance(state, dict):
+        for k in sorted(state):
+            yield from state_tensors(state[k])
+    else:
+        for v in state:
+            yield from state_tensors(v)
+
+
 class StaticStream:
     """A streaming cell at B = 1 over static buffers, the body a CUDA graph
     captures (:func:`capture`): :func:`stream_step` by default, or any
-    ``step(state, x_t) -> (logits, new_state)`` from ``state`` (a list of
-    per-layer dicts of tensors), such as the int8 cells
+    ``step(state, x_t) -> (logits, new_state)`` from ``state`` (tensors in
+    dicts and lists: per-layer FIFOs, or a window buffer), such as the int8 cells
     (:func:`stgx_torch.bench.streaming.measure_quant`).
 
     A :meth:`step` reads frame ``cursor`` of ``frames`` ``(L, V, C)``, runs
@@ -102,7 +115,7 @@ class StaticStream:
                                   dtype=frames.dtype, device=frames.device)
 
     def _tensors(self, state):
-        return [layer[k] for layer in state for k in sorted(layer)]
+        return list(state_tensors(state))
 
     def step(self):
         x_t = self.frames.index_select(0, self.cursor)  # (1, V, C)

@@ -1,10 +1,13 @@
 """Int8 post-training quantization of the streaming cells — the port of
-``stgx/bench/quant.py`` for RT-ST-GCN and CoST-GCN.
+``stgx/bench/quant.py``: RT-ST-GCN's and CoST-GCN's FIFO cells, and the
+ST-GCN window cell (the window re-run each frame, its centered temporal
+conv an im2col of Γ strided slices, taps leading, and one product).
 
 The scheme is the JAX package's:
 
 * **weights**: symmetric per-output-channel int8 (``s_w = max|w| / 127``),
-  made once by :func:`quantize_rtstgcn` / :func:`quantize_costgcn`, in the
+  made once by :func:`quantize_rtstgcn` / :func:`quantize_costgcn` /
+  :func:`quantize_stgcn`, in the
   int8 kernels' layout (:func:`stgx_torch.ops.int8_gemm.weight_layout`:
   the same values and bytes as the JAX package's, stored column-major);
 * **activations**: symmetric per-tensor int8, with a *dynamic* scale
@@ -36,7 +39,14 @@ FIFO state is fp32, bf16 or int8 (``init_*(…, dtype=…)``); int8 state stores
 each frame's codes under the static scale of its ``.state`` site (the
 CoST-GCN main FIFO under its ``layers.i.tcn`` site, whose taps feed the tcn
 product already quantized). A calibration always observes the ``.state``
-sites, so one scales dict serves every state dtype.
+sites, so one scales dict serves every state dtype. The ST-GCN window
+cell's state is its buffer of raw input frames, fp32 or bf16 only (no
+calibrated scale exists for raw frames: int8 raises ``ValueError``); a
+bf16 buffer's input norm is rounded to bf16, as the JAX cell's is, and
+quantized to codes as the JAX cell does it, by a division in bf16
+(:func:`_bf16_codes`), before the ``fcn_in`` product reads them (its K = 3
+rows only the staged route, which takes no bf16, can read); w8 widens it
+to fp32 exactly.
 """
 
 from __future__ import annotations
@@ -44,9 +54,11 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 
 from stgx_torch.models import costgcn
 from stgx_torch.models.rtstgcn import frame_norm
+from stgx_torch.ops.norms import batch_norm, layer_norm
 from stgx_torch.ops.int8_gemm import int8_gemm, quantize_codes, w8_gemm, weight_layout
 from stgx_torch.ops.temporal import init_accumulator_state
 
@@ -55,8 +67,10 @@ __all__ = [
     "int8_matmul",
     "quantize_rtstgcn",
     "quantize_costgcn",
+    "quantize_stgcn",
     "quantized_stream_step",
     "quantized_costgcn_stream_step",
+    "quantized_stgcn_window",
     "init_quant_stream_state",
     "quantized_size_bytes",
     "calibrate_scales",
@@ -77,15 +91,15 @@ _STATIC = None
 _CONSUMED = None
 _OBSERVER = None
 _DEVICE_SCALES = {}
-_CONST = {}  # (value, device) -> 0-d fp32 tensor
+_CONST = {}  # (value, device, dtype) -> 0-d tensor
 
 
-def _const(value: float, device) -> torch.Tensor:
-    """A 0-d fp32 constant on ``device``, made once (before any capture)."""
-    key = (value, torch.device(device))
+def _const(value: float, device, dtype=torch.float32) -> torch.Tensor:
+    """A 0-d constant on ``device``, made once (before any capture)."""
+    key = (value, torch.device(device), dtype)
     t = _CONST.get(key)
     if t is None:
-        t = _CONST[key] = torch.tensor(value, dtype=torch.float32, device=device)
+        t = _CONST[key] = torch.tensor(value, dtype=dtype, device=device)
     return t
 
 
@@ -231,6 +245,23 @@ def int8_matmul(x, w_q, s_w, act_scale=None, site=None, bias=None, taps=None):
     else:
         y = int8_gemm(a, w_q, _act_scale(tapped, act_scale, site=site), s_w, bias, taps=taps)
     return y.reshape(*lead, w_q.shape[1])
+
+
+def _bf16_codes(x, site):
+    """The int8 codes of a bf16 activation as the JAX cells make them: the
+    scale (the site's static one, or ``max|x| / 127`` divided in bf16)
+    rounded to bf16 and ``x / scale`` divided in bf16 before it is rounded
+    to a code. Returns ``(codes, s)``, ``s`` the fp32 scale the product
+    rescales by (the static value as calibrated, or the bf16 live scale)."""
+    if _MODE == "static" and _STATIC is not None:
+        s = _static_scale(site, x.device)
+        d = s.to(torch.bfloat16)
+    else:
+        d = torch.clamp_min(x.abs().amax(), 1e-12) / _const(127.0, x.device, torch.bfloat16)
+        s = d.float()
+        if _OBSERVER is not None:
+            _OBSERVER.append((site, s))
+    return torch.round(x / d).clamp_(-127, 127).to(torch.int8), s
 
 
 # -- FIFO-state dtype ----------------------------------------------------------
@@ -489,6 +520,115 @@ def _init_costgcn_quant_state(model, batch: int = 1, dtype=torch.float32):
     return costgcn.init_stream_state(model, batch=batch, dtype=dtype)
 
 
+# -- ST-GCN (window classifier) -------------------------------------------------
+
+
+def quantize_stgcn(model):
+    """Quantize every matmul weight of an ``Stgcn`` (window form): as
+    :func:`quantize_rtstgcn`, plus the temporal kernel reshaped ``(Γ·C,
+    C)`` taps leading (the im2col's column order in
+    :func:`_int8_temporal_conv`), and the residual 1×1 conv with its bias."""
+    with torch.no_grad():
+        q = {"norm_in": _norm_params(model.norm_in), "layers": [], "fcn_in": _dense(model.fcn_in)}
+        for i, layer in enumerate(model.layers):
+            gw, tw = layer.gcn.kernel, layer.tcn_kernel
+            lq = {
+                "A": model.layer_A(i).detach().clone(),
+                "gcn": (*_qweight(gw.reshape(-1, gw.shape[-1])), layer.gcn.bias.detach().clone()),
+                "tcn": (*_qweight(tw.reshape(-1, tw.shape[-1])), layer.tcn_bias.detach().clone()),
+                "norms": _layer_norms(model, layer),
+            }
+            if hasattr(layer, "res_kernel"):
+                lq["res"] = (*_qweight(layer.res_kernel), layer.res_bias.detach().clone())
+            q["layers"].append(lq)
+        q["fcn_out"] = _dense(model.fcn_out)
+    return q
+
+
+def _window_norm(kind, p, x, per_joint: bool = False, mask=None):
+    """The eval-mode norm on ``(N, L, V, C)``: batch statistics recomputed
+    (no running stats), as the batch form's."""
+    if kind == "LayerNorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return batch_norm(x, p["scale"], p["bias"], axes=(0, 1) if per_joint else (0, 1, 2),
+                      mask=mask)
+
+
+def _int8_temporal_conv(x, tq, ts, tb, gamma: int, stride: int, site=None):
+    """The centered (Γ, 1) temporal conv as an im2col and one int8 product:
+    ``out[n, t, v] = Σ_k x_pad[n, t·stride + k, v] · W[k]`` with Γ//2 zero
+    frames on each side, the Γ strided slices stacked taps leading so that
+    they meet the ``(Γ·C, C)`` kernel's rows in order."""
+    n, l, v, c = x.shape
+    eff = gamma - 1
+    lout = -(-l // stride)
+    xp = F.pad(x, (0, 0, 0, 0, eff // 2, eff - eff // 2))
+    taps = torch.stack([xp[:, k: k + (lout - 1) * stride + 1: stride] for k in range(gamma)],
+                       dim=3)  # (N, L_out, V, Γ, C)
+    return int8_matmul(taps.reshape(n, lout, v, gamma * c), tq, ts, site=site, bias=tb)
+
+
+@torch.no_grad()
+def quantized_stgcn_window(model, qparams, x, mask=None):
+    """The int8 ST-GCN window forward ``(N, L, V, C_in)`` → ``(N,
+    classes)``: the math of ``Stgcn.forward`` in eval mode with every
+    product int8 (by the mode), the adjacency an fp32 einsum."""
+    _static_reset()
+    kind = _kind(model)
+    q = qparams
+    x = _window_norm(kind, q["norm_in"], x, per_joint=True, mask=mask)
+    wq, sw, b = q["fcn_in"]
+    if x.dtype == torch.bfloat16 and _MODE != "w8":
+        codes, s = _bf16_codes(x, "fcn_in")
+        x = int8_matmul(codes, wq, sw, act_scale=s, bias=b)
+    else:
+        x = int8_matmul(x.float(), wq, sw, site="fcn_in", bias=b)
+    for i, (layer, lq) in enumerate(zip(model.layers, q["layers"])):
+        stride = layer.stride
+        smask = mask[:, ::stride] if mask is not None else None
+        norms = [lq["norms"][n] for n in sorted(lq["norms"])]
+        if not layer.residual:
+            res = 0.0
+        elif layer.identity:
+            res = x
+        else:
+            rq, rs, rb = lq["res"]
+            res = _window_norm(kind, norms.pop(0), int8_matmul(
+                x[:, ::stride], rq, rs, site=f"layers.{i}.res", bias=rb), mask=smask)
+        A = lq["A"]
+        agg = torch.einsum("nlvc,pvw->nlwpc", x, A)  # (N, L, V, P, C_in)
+        wq, sw, gb = lq["gcn"]
+        y = int8_matmul(agg.reshape(*agg.shape[:3], -1), wq, sw, site=f"layers.{i}.gcn")
+        y = y + torch.einsum("pvw,pd->wd", A, gb)
+        y = torch.relu(_window_norm(kind, norms[0], y, mask=mask))
+        tq, ts, tb = lq["tcn"]
+        y = _int8_temporal_conv(y, tq, ts, tb, model.kernel, stride, site=f"layers.{i}.tcn")
+        y = _window_norm(kind, norms[1], y, mask=smask)
+        x = torch.relu(y + res)
+        mask = smask
+    wq, sw, b = q["fcn_out"]
+    return int8_matmul(x.mean(dim=(1, 2)), wq, sw, site="fcn_out", bias=b)
+
+
+def _stgcn_window_qstep(model, qparams, state, x_t):
+    """One frame ``(B, V, C_in)`` of B streams through the int8 window cell:
+    the buffer rolled by one frame with ``x_t`` last, then
+    :func:`quantized_stgcn_window` on it. Returns ``(logits, new_state)``."""
+    buf = torch.cat([state["buf"][:, 1:], x_t[:, None].to(state["buf"].dtype)], dim=1)
+    return quantized_stgcn_window(model, qparams, buf), {"buf": buf}
+
+
+def _init_stgcn_quant_state(model, batch: int = 1, dtype=torch.float32, window: int = 50):
+    """The empty window buffer ``(B, W, V, C_in)`` in ``dtype`` (float32 or
+    bfloat16) on the model's device."""
+    if dtype == torch.int8:
+        raise ValueError(
+            "st-gcn's window buffer holds raw input frames — no calibrated "
+            "scale exists for them; use float32/bfloat16 state")
+    return {"buf": torch.zeros((batch, window, model.num_joints, model.in_feat), dtype=dtype,
+                               device=model.A.device)}
+
+
 # -- calibration, the registry, sizes -------------------------------------------
 
 
@@ -533,18 +673,20 @@ def calibrate_scales(model, qparams, frames, name: str) -> dict:
 
 class _Registry(dict):
     def __missing__(self, name):
-        if name == "st-gcn":
-            raise NotImplementedError(
-                "the int8 st-gcn window cell (quantized_stgcn_window) needs Stgcn, which "
-                "is not ported to stgx_torch yet; see ROADMAP.md, queue 1 item 7")
         raise KeyError(f"{name!r} has no quantized streaming cell (have {sorted(self)})")
 
 
 # model name → (quantize(model), qstep(model, qparams, state, x_t),
-# init_state(model, batch, dtype))
+# init_state(model, batch, dtype, window)); only st-gcn's buffer is sized by
+# the window, the FIFO cells ignore it
 QUANT_MODELS = _Registry({
-    "rt-st-gcn": (quantize_rtstgcn, quantized_stream_step, init_quant_stream_state),
-    "co-st-gcn": (quantize_costgcn, quantized_costgcn_stream_step, _init_costgcn_quant_state),
+    "rt-st-gcn": (quantize_rtstgcn, quantized_stream_step,
+                  lambda model, batch=1, dtype=torch.float32, window=None:
+                  init_quant_stream_state(model, batch, dtype)),
+    "co-st-gcn": (quantize_costgcn, quantized_costgcn_stream_step,
+                  lambda model, batch=1, dtype=torch.float32, window=None:
+                  _init_costgcn_quant_state(model, batch, dtype)),
+    "st-gcn": (quantize_stgcn, _stgcn_window_qstep, _init_stgcn_quant_state),
 })
 
 

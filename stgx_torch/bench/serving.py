@@ -1,6 +1,9 @@
 """Serving capacity: concurrent real-time streams one H100 sustains — the
 port of ``stgx/bench/serving.py`` (RT-ST-GCN and CoST-GCN, the plain cells
-and the int8 one).
+and the int8 one), and the same for ST-GCN's window cell (the window of
+W = 50 frames, every config's receptive field, re-run each frame; plain,
+or int8 with ``--quant``) and AA-GCN's (plain), which the JAX tool does
+not serve.
 
 A serving deployment runs many captures at once: the streaming cell's FIFO
 carry is batched over a leading stream axis, so one step advances B streams
@@ -33,7 +36,7 @@ the fp32 cell and the chosen variant and reports how far the logits drift
 apart, and whether the drift grows along the stream.
 
 Run (on the card):
-    python -m stgx_torch.bench.serving [--model rt-st-gcn|co-st-gcn]
+    python -m stgx_torch.bench.serving [--model rt-st-gcn|co-st-gcn|st-gcn|aa-gcn]
         [--config F] [--kernel GAMMA] --batches 1,64 --frames 256
         [--dtype bfloat16 | --quant int8-static [--state-dtype int8]]
         [--check-drift] [--bisect] [--profile]
@@ -62,9 +65,10 @@ import numpy as np
 import torch
 
 from stgx_torch.bench.quant import QUANT_MODELS, calibrate_scales, quant_mode
-from stgx_torch.bench.streaming import streaming_fns, timed_steps
+from stgx_torch.bench.headline import state_tensors
+from stgx_torch.bench.streaming import init_window_state, streaming_fns, timed_steps, window_step
 from stgx_torch.config import FAMILY_CONFIGS
-from stgx_torch.models import CoStgcn, RtStgcn
+from stgx_torch.models import CoStgcn, RtStgcn, Stgcn
 
 __all__ = [
     "serving_cell",
@@ -88,12 +92,19 @@ QUANT = ("int8-static",)
 CALIB_FRAMES = 256
 
 
+def _plain_fns(model):
+    """``(init(model, batch=, dtype=), step(model, state, x_t))`` of the
+    model's plain cell: its FIFO cell, or the window cell."""
+    return streaming_fns(model) or (init_window_state, window_step)
+
+
 def serving_cell(model, batch: int, dtype=None):
     """``(state0, model_like)`` of the plain fp32 or bf16 cell: parameters
-    and FIFO state both in ``dtype`` (the model itself is left as it is)."""
+    and state (FIFOs, or the window buffer) both in ``dtype`` (the model
+    itself is left as it is)."""
     if dtype is not None and dtype != next(model.parameters()).dtype:
         model = copy.deepcopy(model).to(dtype)
-    return streaming_fns(model)[0](model, batch=batch, dtype=dtype), model
+    return _plain_fns(model)[0](model, batch=batch, dtype=dtype), model
 
 
 def quant_cell(model, batch: int, quant: str = "int8-static", state_dtype=None,
@@ -113,7 +124,7 @@ def quant_cell(model, batch: int, quant: str = "int8-static", state_dtype=None,
 
 
 def _family(model) -> str:
-    name = {RtStgcn: "rt-st-gcn", CoStgcn: "co-st-gcn"}.get(type(model))
+    name = {RtStgcn: "rt-st-gcn", CoStgcn: "co-st-gcn", Stgcn: "st-gcn"}.get(type(model))
     if name is None:
         raise ValueError(f"{type(model).__name__} has no int8 streaming cell")
     return name
@@ -124,7 +135,7 @@ def _cell(model, batch, dtype=None, quant=None, state_dtype=None, scales=None):
     variant: the plain cell in ``dtype``, or the int8 cell."""
     if quant is None:
         state, cell = serving_cell(model, batch, dtype)
-        fn = streaming_fns(cell)[1]
+        fn = _plain_fns(cell)[1]
         return state, lambda m, st, x_t: fn(cell, st, x_t), contextlib.nullcontext(), dtype
     state, step, ctx = quant_cell(model, batch, quant, state_dtype, scales)
     return state, lambda m, st, x_t: step(st, x_t), ctx, None
@@ -141,13 +152,14 @@ def calibration_frames(model, n: int = CALIB_FRAMES, seed: int = 0):
 
 
 def state_bytes(model, batch: int, dtype=None, quant=None, state_dtype=None) -> int:
-    """Bytes of the FIFO state of ``batch`` streams of a serving variant."""
+    """Bytes of the state (FIFOs, or the window buffer) of ``batch`` streams
+    of a serving variant."""
     if quant is None:
-        state = streaming_fns(model)[0](model, batch=1, dtype=dtype or torch.float32)
+        state = _plain_fns(model)[0](model, batch=1, dtype=dtype or torch.float32)
     else:
         state = QUANT_MODELS[_family(model)][2](model, batch=1,
                                                 dtype=state_dtype or torch.float32)
-    return batch * sum(t.numel() * t.element_size() for layer in state for t in layer.values())
+    return batch * sum(t.numel() * t.element_size() for t in state_tensors(state))
 
 
 def make_frames(model, batch: int, frames: int, dtype=None):
@@ -338,6 +350,7 @@ def main(argv=None):
     if args.kernel is not None:
         set_kernel(cfg, args.kernel)
     model = build_model(cfg, NUM_CLASSES)
+    _plain_fns(model)  # MS-TCN and MS-GCN stream in no form: ValueError
     dtype = DTYPES[args.dtype]
     budget_ms = 1e3 / args.fps
     variant = {"model": name, "dtype": args.dtype, "kernel": model.kernel,

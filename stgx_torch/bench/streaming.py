@@ -3,12 +3,13 @@
 
 The deployed realtime loop calls a one-frame cell once per arriving frame,
 threading its state. RT-ST-GCN's and CoST-GCN's cells are their FIFO
-streaming steps (:func:`streaming_fns`). A window classifier (the
-JAX package's ``WINDOW_MODELS``; Shift-GCN in the port) streams by
+streaming steps (:func:`streaming_fns`). A window classifier (the JAX
+package's ``WINDOW_MODELS``: ST-GCN, AA-GCN, Shift-GCN) streams by
 re-running its window on each frame (:func:`window_step`): a ``(B, W, V,
 C)`` buffer that starts as zeros (the empty buffer), is rolled by one
 frame and gets the new frame last, then the model on the buffer with
-``train=False`` and no mask.
+``train=False`` and no mask. MS-TCN and MS-GCN have no streaming form
+(``ValueError``, as in the JAX package).
 
 Each step is timed with CUDA events from before its first launch to after
 its last: the wait a frame sees from arrival to logits on the device,
@@ -18,8 +19,8 @@ raises.
 :func:`run_streaming_benchmark` is the CLI's ``benchmark`` command (the
 port of the JAX function of that name): the configured model's cell over
 the first validation trial, with ``latency.csv``, ``model-size.csv`` and
-``accuracy.csv`` written and one JSON line printed, and for RT-ST-GCN and
-CoST-GCN the int8 rows (:mod:`stgx_torch.bench.quant`). A run the config
+``accuracy.csv`` written and one JSON line printed, and for RT-ST-GCN,
+CoST-GCN and ST-GCN the int8 rows (:mod:`stgx_torch.bench.quant`). A run the config
 puts on the CPU (``job.platform: "cpu"``) times its steps with the host's
 clock and says so (``"clock": "host"``).
 
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from stgx_torch.bench.quant import QUANT_MODELS, calibrate_scales, quant_mode, quantized_size_bytes
-from stgx_torch.models import costgcn, rtstgcn
+from stgx_torch.models import MsGcn, MsTcn, costgcn, rtstgcn
 
 __all__ = ["measure_stream_latency", "timed_steps", "init_window_state",
            "window_step", "streaming_fns", "run_streaming_benchmark", "graph_frame_ms",
@@ -57,7 +58,9 @@ _CELLS = {rtstgcn.RtStgcn: rtstgcn, costgcn.CoStgcn: costgcn}
 def streaming_fns(model):
     """``(init_stream_state, stream_step)`` of the model's FIFO cell, or
     ``None`` for a window classifier, which streams through
-    :func:`window_step`."""
+    :func:`window_step`; a multi-stage segmenter raises ``ValueError``."""
+    if isinstance(model, (MsTcn, MsGcn)):
+        raise ValueError(f"no streaming form for model {type(model).__name__}")
     mod = _CELLS.get(type(model))
     return None if mod is None else (mod.init_stream_state, mod.stream_step)
 
@@ -175,12 +178,9 @@ def graph_frame_ms(model, frames, repeats: int = 3, step=None, state=None,
                            f"{frames.device}")
     if step is None:
         fns = streaming_fns(model)
-        if fns is None:  # the window cell: its buffer as a one-layer state
-            state = [init_window_state(model, 1, window, frames.dtype)]
-
-            def step(st, x_t):
-                logits, buf = window_step(model, st[0], x_t)
-                return logits, [buf]
+        if fns is None:
+            state = init_window_state(model, 1, window, frames.dtype)
+            step = lambda st, x_t: window_step(model, st, x_t)  # noqa: E731
         else:
             init, fn = fns
             state = init(model, batch=1, dtype=frames.dtype)
@@ -254,16 +254,17 @@ def _shapes(tree, prefix=""):
             yield f"{prefix}{k}", np.shape(v)
 
 
-def _int8_rows(model, name, frames, top1_fp32, labels, measure) -> dict:
+def _int8_rows(model, name, frames, top1_fp32, labels, measure, window) -> dict:
     """The JAX benchmark's int8 rows for a family of ``QUANT_MODELS``: the
     dynamic cell's eager p50 and its predictions (top-1 and agreement with
     the fp32 cell), the quantized size and, on the card, the graph replays
     of the dynamic, calibrated-static and w8 cells (calibrated on the same
     frames, as the JAX benchmark does); on the CPU those are not measured
-    (None)."""
+    (None). ST-GCN's eager cell re-runs a window of ``window`` frames, its
+    graph replays and calibration the default 50, as in the JAX benchmark."""
     quantize, qstep_fn, qinit = QUANT_MODELS[name]
     qparams = quantize(model)
-    cell = (qinit(model, batch=1), lambda m, st, x_t: qstep_fn(m, qparams, st, x_t))
+    cell = (qinit(model, batch=1, window=window), lambda m, st, x_t: qstep_fn(m, qparams, st, x_t))
     _, q_p50, _, q_logits = measure(model, frames, cell=cell)
     q_top1 = q_logits.argmax(-1)
     onchip = {"int8_onchip_ms": None, "int8_static_onchip_ms": None, "w8_onchip_ms": None}
@@ -287,9 +288,10 @@ def run_streaming_benchmark(cfg, device=None) -> int:
     through the configured model's cell on ``device`` (``cuda`` if None) and
     write ``latency.csv``, ``model-size.csv`` (the JAX package's columns)
     and ``accuracy.csv`` under ``processor.out``; prints one JSON line. For
-    RT-ST-GCN and CoST-GCN the int8 rows follow the fp32 ones
+    RT-ST-GCN, CoST-GCN and ST-GCN the int8 rows follow the fp32 ones
     (:func:`_int8_rows`), whatever ``processor.quantize`` says, as in the
-    JAX benchmark."""
+    JAX benchmark. MS-TCN and MS-GCN, which have no streaming form, raise
+    ``ValueError`` before a file is written."""
     from stgx_torch import default_device
     from stgx_torch.config import build_model
     from stgx_torch.data import build_datasets, load_actions
@@ -315,7 +317,7 @@ def run_streaming_benchmark(cfg, device=None) -> int:
     size_mb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
     # the dispatch-free view: the graph replay
     onchip_ms = graph_frame_ms(model, frames, window=window) if on_card else None
-    int8 = (_int8_rows(model, name, frames, top1, y[:n_frames], measure)
+    int8 = (_int8_rows(model, name, frames, top1, y[:n_frames], measure, window)
             if name in QUANT_MODELS else {})
 
     for fname, header, row in (

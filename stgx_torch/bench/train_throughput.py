@@ -1,6 +1,6 @@
 """Train-step throughput on the card — the port of
 ``stgx/bench/train_throughput.py`` for ``rt-st-gcn`` and ``co-st-gcn`` (the
-``frame`` kind) and ``shift-gcn`` (the ``window`` kind).
+``frame`` kind), ``st-gcn`` and ``shift-gcn`` (the ``window`` kind).
 
 One train step is the :class:`~stgx_torch.parallel.loop.Trainer`'s: forward,
 loss, backward through the hand-written kernels and an Adam update, on
@@ -10,12 +10,13 @@ window-kind step takes ``--trials`` windows of the config's receptive field
 W (``--frames`` is unused), and since one window classifies one frame,
 windows/s is frames/s, as in the JAX package. Each step is timed with CUDA
 events after ``WARMUP`` steps; the median of ``STEPS`` steps is the step
-time. For the frame-kind models the report also gives the model's TFLOP/s
-(MACs a frame from :mod:`stgx_torch.utils.flops`, ×3 for forward and
-backward, 2 flops a MAC) as a share of the H100's peak for the compute type
-(``peak_share``), and the least device-memory traffic of a step at that
-rate as a share of the H100's bandwidth (``hbm_share``: RT-ST-GCN's bytes a
-frame, CoST-GCN's as an ST-GCN window of one frame with no stride, as the
+time. For RT-ST-GCN, CoST-GCN and ST-GCN the report also gives the
+model's TFLOP/s (MACs a frame, or a window, from
+:mod:`stgx_torch.utils.flops`, ×3 for forward and backward, 2 flops a MAC)
+as a share of the H100's peak for the compute type (``peak_share``), and
+the least device-memory traffic of a step at that rate as a share of the
+H100's bandwidth (``hbm_share``: RT-ST-GCN's bytes a frame, ST-GCN's a
+window, CoST-GCN's as an ST-GCN window of one frame with no stride, as the
 JAX package counts them); the JAX package counts neither for Shift-GCN, so
 there they are null.
 
@@ -24,6 +25,7 @@ Run (on the card):
         [--fused] [--profile]
     python -m stgx_torch.bench.train_throughput \
         --config configs/pku-mmd/as_is/shiftgcn.json --trials 256 [--dtype bfloat16]
+    python -m stgx_torch.bench.train_throughput --model st-gcn --trials 256
 
 ``--model`` picks the family's canonical config (RT-ST-GCN₉ or CoST-GCN₉ at
 their PKU-MMD widths) unless ``--config`` names another.
@@ -51,6 +53,7 @@ from stgx_torch.utils.flops import (
     costgcn_macs_per_frame,
     rt_stgcn_macs_per_frame,
     rt_stgcn_train_hbm_bytes_per_frame,
+    stgcn_macs_per_window,
     stgcn_train_hbm_bytes_per_window,
 )
 
@@ -150,17 +153,25 @@ def profile_steps(step, top: int | None = PROFILE_TOP) -> dict:
     }
 
 
-def rooflines(model, name: str, dtype: str):
+def rooflines(model, name: str, dtype: str, window: int = 50):
     """``(MACs a frame, least device-memory bytes a trained frame)`` of a
-    frame-kind model at its widths, or ``(None, None)`` for a family the
-    JAX package counts neither for."""
-    if name not in ("rt-st-gcn", "co-st-gcn"):
+    frame-kind model at its widths (ST-GCN: a window of ``window`` frames,
+    which classifies one frame), or ``(None, None)`` for a family the JAX
+    package counts neither for."""
+    if name not in ("rt-st-gcn", "co-st-gcn", "st-gcn"):
         return None, None
     shape = dict(in_ch=model.in_ch, out_ch=model.out_ch,
                  num_joints=model.num_joints, partitions=model.partitions,
                  in_feat=model.in_feat)
     residual = tuple(int(layer.residual) for layer in model.layers)
     dtype_bytes = 2 if dtype == "bfloat16" else 4
+    if name == "st-gcn":
+        return (stgcn_macs_per_window(window=window, num_classes=NUM_CLASSES,
+                                      kernel=model.kernel, stride=model.stride,
+                                      residual=residual, **shape),
+                stgcn_train_hbm_bytes_per_window(window=window, kernel=model.kernel,
+                                                 stride=model.stride, residual=residual,
+                                                 dtype_bytes=dtype_bytes, **shape))
     if name == "rt-st-gcn":
         return (rt_stgcn_macs_per_frame(num_classes=NUM_CLASSES, residual=residual, **shape),
                 rt_stgcn_train_hbm_bytes_per_frame(dtype_bytes=dtype_bytes, **shape))
@@ -176,8 +187,7 @@ def rooflines(model, name: str, dtype: str):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default=None, choices=sorted(FAMILY_CONFIGS),
-                    help="a frame-kind family, trained from its canonical config "
-                    "(default rt-st-gcn)")
+                    help="a family, trained from its canonical config (default rt-st-gcn)")
     ap.add_argument("--config", default=None,
                     help="the model's config (default: the --model family's)")
     ap.add_argument("--dtype", default="float32", choices=sorted(H100_PEAK_FLOPS))
@@ -208,7 +218,7 @@ def main(argv=None) -> dict:
     frames = cfg["arch"]["receptive_field"] if kind == "window" else args.frames
     fps, p50, step_ms = measure_train_throughput(trainer, args.trials, frames)
     tflops = share = hbm_share = None
-    macs, nbytes = rooflines(model, name, args.dtype)
+    macs, nbytes = rooflines(model, name, args.dtype, frames)
     if macs is not None:
         tflops = fps * 3 * 2 * macs / 1e12
         share = tflops * 1e12 / H100_PEAK_FLOPS[args.dtype]

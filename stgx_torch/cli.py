@@ -13,9 +13,16 @@ from the config, runs, and writes the JAX CLI's artifacts under
 * ``test``: ``macro-F1@k.csv``, ``edit.csv``, ``confusion-matrix.csv``,
   ``accuracy.csv`` and the segmentation dumps;
 * ``benchmark``: :func:`stgx_torch.bench.streaming.run_streaming_benchmark`,
-  with the int8 rows for RT-ST-GCN and CoST-GCN; as in the JAX CLI it does
-  not read ``processor.quantize`` or ``processor.state_dtype`` (only
-  ``export`` does).
+  with the int8 rows for RT-ST-GCN, CoST-GCN and ST-GCN; as in the JAX CLI
+  it does not read ``processor.quantize`` or ``processor.state_dtype``
+  (only ``export`` does), and MS-TCN and MS-GCN, which have no streaming
+  form, raise ``ValueError``.
+
+Every family of the JAX package but Shift-GCN++ runs: RT-ST-GCN, CoST-GCN
+(``frame`` kind), MS-TCN (``frame_ms``), ST-GCN, AA-GCN, Shift-GCN
+(``window``) and MS-GCN (``window_ms``); the multi-stage kinds report the
+last stage's statistics (``StatisticsMultiStage``), as ``stgx/cli.py``
+does.
 
 Resume rules are the JAX CLI's: ``processor.checkpoint`` resumes training
 after its epoch; ``processor.torch_checkpoint`` starts from a reference
@@ -28,8 +35,9 @@ for a ``torch.profiler`` trace of the first epoch trained.
 The commands run on the CUDA device, or on the CPU when the config's
 ``job.platform`` is ``"cpu"`` (any other value is refused). Not ported yet,
 each refused with its place in ROADMAP.md's queue 1: ``export`` (item 9),
-``job.distributed`` and meshes past one device (item 10), Shift-GCN++'s
-teacher grafting (item 8); and an ``arch.gcn_impl`` other than the
+``job.distributed``, meshes past one device and the pipelined MS-TCN
+(``arch.pipeline``) (item 10), Shift-GCN++ (item 8); and an
+``arch.gcn_impl`` other than the
 hand-written kernels, since the port has no other graph-conv route on the
 card.
 """
@@ -80,6 +88,8 @@ def _refuse_unported(command, cfg) -> None:
     mesh = job.get("mesh") or {}
     if job.get("distributed") or any((mesh.get(k) or 1) > 1 for k in ("data", "seq", "model")):
         refuse("multi-device training (job.distributed, job.mesh)", 10)
+    if arch.get("pipeline"):
+        refuse("the pipelined MS-TCN (arch.pipeline)", 10)
     if arch.get("shift-gcn++", {}).get("teacher_checkpoint"):
         refuse("Shift-GCN++ teacher grafting", 8)
     if arch.get("gcn_impl") not in (None, _KERNEL_GCN_IMPL):

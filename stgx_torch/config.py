@@ -5,8 +5,8 @@ The config schema is the JAX package's (groups ``processor``, ``arch``,
 overrides winning; :func:`parse_args` reads the command line of
 ``python -m stgx_torch.cli {train|test|benchmark|export} [--config F]
 [--set group.key=value ...]``, the JAX package's grammar. :func:`build_model`
-builds ``rt-st-gcn``, ``co-st-gcn`` and ``shift-gcn``; the other families
-raise ``NotImplementedError`` (see ``ROADMAP.md``).
+builds every family but Shift-GCN++ and its teacher, which raise
+``NotImplementedError`` (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -24,10 +24,14 @@ from stgx_torch.ops.rt_fused import set_rt_fused
 __all__ = ["load_config", "build_model", "make_parser", "parse_args", "DEFAULTS",
            "FAMILY_CONFIGS"]
 
-# the canonical PKU-MMD config of each continual family, which the serving
-# and train-throughput benches take for --model
+# the canonical PKU-MMD config of each family, which the serving and
+# train-throughput benches take for --model
 FAMILY_CONFIGS = {"rt-st-gcn": "configs/pku-mmd/as_is/rtstgcn.json",
-                  "co-st-gcn": "configs/pku-mmd/ln/costgcn.json"}
+                  "co-st-gcn": "configs/pku-mmd/ln/costgcn.json",
+                  "st-gcn": "configs/pku-mmd/as_is/stgcn.json",
+                  "aa-gcn": "configs/pku-mmd/as_is/aagcn.json",
+                  "ms-tcn": "configs/pku-mmd/as_is/mstcn.json",
+                  "ms-gcn": "configs/pku-mmd/as_is/msgcn.json"}
 
 DEFAULTS: dict[str, dict[str, Any]] = {
     "processor": {
@@ -140,20 +144,37 @@ def build_model(cfg: dict, num_classes: int, device=None,
     arch = cfg["arch"]
     name = cfg["processor"]["model"]
     model_cls = MODELS[name]  # raises for the families not ported yet
+    if "rt_fused" in arch:
+        set_rt_fused(bool(arch["rt_fused"]))
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg["optimizer"]["seed"]))
+    remat = bool(arch.get("remat", False))
+    refine = dict(refine=arch.get("refine", "softmax"),
+                  output_type=arch.get("output_type", "logits"))
+    if name == "ms-tcn":
+        sub = arch.get("ms-tcn", {})
+        return model_cls(
+            num_classes=num_classes, in_feat=arch["in_feat"], stages=sub.get("stages", 4),
+            filters=tuple(sub.get("filters", (64,) * 4)),
+            layers=tuple(sub.get("layers", (10,) * 4)),
+            kernel=tuple(sub.get("kernel", (3,) * 4)),
+            dropout=tuple(sub.get("dropout", (0.5,) * 4)),
+            remat=remat, device=device, generator=generator, **refine)
     kw = dict(
         num_classes=num_classes,
         in_feat=arch["in_feat"],
         graph=load_skeleton(cfg["processor"]["graph"]),
         strategy=arch.get("strategy", "spatial"),
         normalization=arch.get("normalization", "BatchNorm"),
-        remat=bool(arch.get("remat", False)),
+        remat=remat,
     )
     # each family's own keywords, as stgx/config.py passes them
     if name == "shift-gcn":
         sub = arch.get(name, {})
         layer_keys = ("in_ch", "out_ch", "stride", "residual")
     else:
-        sub = arch.get(name, arch.get("st-gcn", {}))
+        # ms-gcn's generator is the st-gcn group
+        sub = arch.get("st-gcn" if name == "ms-gcn" else name, arch.get("st-gcn", {}))
         kw["kernel"] = sub.get("kernel", arch.get("kernel", 9))
         kw["importance"] = bool(sub.get("importance", True))
         layer_keys = ("in_ch", "out_ch", "stride", "residual", "dropout")
@@ -166,8 +187,13 @@ def build_model(cfg: dict, num_classes: int, device=None,
     for key in layer_keys:
         if key in sub:
             kw[key] = tuple(sub[key])
-    if "rt_fused" in arch:
-        set_rt_fused(bool(arch["rt_fused"]))
-    if generator is None:
-        generator = torch.Generator().manual_seed(int(cfg["optimizer"]["seed"]))
+    if name == "aa-gcn":
+        kw["output_type"] = refine["output_type"]
+    if name == "ms-gcn":
+        # the refinement is the ms-tcn group (stgx/config.py:178-192)
+        ref = arch.get("ms-tcn", {})
+        kw.update(stages=ref.get("stages", 4), filters=tuple(ref.get("filters", (64,) * 4)),
+                  layers=tuple(ref.get("layers", (10,) * 4)),
+                  refine_kernel=tuple(ref.get("kernel", (3,) * 4)),
+                  refine_dropout=tuple(ref.get("dropout", (0.5,) * 4)), **refine)
     return model_cls(**kw, device=device, generator=generator)

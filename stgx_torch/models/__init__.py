@@ -1,16 +1,17 @@
-"""Model registry of the port: RT-ST-GCN, CoST-GCN and Shift-GCN so far;
-asking for any other family of the JAX package raises
+"""Model registry of the port: every family of the JAX package but
+Shift-GCN++ and its teacher, for which asking raises
 ``NotImplementedError``."""
 
+from stgx_torch.models.aagcn import AaGcn
 from stgx_torch.models.costgcn import CoStgcn
+from stgx_torch.models.msgcn import MsGcn
+from stgx_torch.models.mstcn import MsTcn
 from stgx_torch.models.rtstgcn import RtStgcn
 from stgx_torch.models.shiftgcn import ShiftGcn
+from stgx_torch.models.stgcn import Stgcn
 
-# families of stgx.models that later slices port, in ROADMAP.md's order
-_NOT_PORTED = (
-    "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn++",
-    "shift-gcn++-teacher",
-)
+# families of stgx.models that a later slice ports (ROADMAP.md, queue 1)
+_NOT_PORTED = ("shift-gcn++", "shift-gcn++-teacher")
 
 
 class _Registry(dict):
@@ -23,6 +24,14 @@ class _Registry(dict):
         raise KeyError(f"unknown model: {name!r} (have {sorted(self)})")
 
 
-MODELS = _Registry({"rt-st-gcn": RtStgcn, "co-st-gcn": CoStgcn, "shift-gcn": ShiftGcn})
+MODELS = _Registry({
+    "st-gcn": Stgcn,
+    "co-st-gcn": CoStgcn,
+    "rt-st-gcn": RtStgcn,
+    "ms-tcn": MsTcn,
+    "ms-gcn": MsGcn,
+    "aa-gcn": AaGcn,
+    "shift-gcn": ShiftGcn,
+})
 
-__all__ = ["MODELS", "RtStgcn", "CoStgcn", "ShiftGcn"]
+__all__ = ["MODELS", "Stgcn", "RtStgcn", "CoStgcn", "AaGcn", "MsTcn", "MsGcn", "ShiftGcn"]

@@ -33,7 +33,7 @@ from torch import nn
 from stgx_torch import default_device
 from stgx_torch.graph import Graph
 from stgx_torch.models._remat import checkpointed
-from stgx_torch.models.stgcn import Dense, GraphConv, make_norm, torch_conv_init
+from stgx_torch.models.stgcn import Dense, GraphConv, dropout, make_norm, torch_conv_init
 from stgx_torch.ops.graph_conv import partitioned_gcn
 from stgx_torch.ops.norms import LayerNorm, batch_norm, layer_norm
 from stgx_torch.ops.rt_fused import rt_fused_enabled
@@ -52,20 +52,6 @@ __all__ = [
     "stream_sequence",
     "frame_norm",
 ]
-
-
-def dropout(x, rate: float, generator: torch.Generator | None):
-    """Inverted dropout as flax's ``nn.Dropout``: keep each element with
-    probability ``1 − rate`` and scale the kept ones by ``1 / (1 − rate)``.
-    The keep-mask comes from ``generator``, which the caller owns."""
-    if rate <= 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in training needs a torch.Generator")
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class RtLayer(nn.Module):

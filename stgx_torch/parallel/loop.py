@@ -1,6 +1,7 @@
 """Training and evaluation on one device — the port of
-``stgx/parallel/loop.py`` for the ``frame`` kind (RT-ST-GCN, CoST-GCN) and
-the ``window`` kind (Shift-GCN).
+``stgx/parallel/loop.py`` for its four kinds: ``frame`` (RT-ST-GCN,
+CoST-GCN), ``frame_ms`` (MS-TCN), ``window`` (ST-GCN, AA-GCN, Shift-GCN)
+and ``window_ms`` (MS-GCN).
 
 * **Unequal-length trials** are padded to static length buckets with frame
   masks (:func:`stgx_torch.parallel.segments.pad_to_bucket`).
@@ -8,16 +9,20 @@ the ``window`` kind (Shift-GCN).
   (:func:`stgx_torch.parallel.segments.sliding_windows`, ``W =
   receptive_field``), one window per frame, processed in ``segment``-sized
   chunks (the reference's memory knob). A chunk's window logits ``(B,
-  classes)`` form the per-frame series ``(1, B, classes)`` the loss sees; a
-  window is masked as a whole (its frame mask broadcast over W), never
-  frame by frame. A chunk's loss is divided by ``divisor · len(chunks)``,
-  and a trial's reported CE and MSE are the mean over its chunks.
+  classes)`` form the per-frame series ``(1, B, classes)`` the loss sees
+  (``window_ms``: MS-GCN's ``(S, 1, B, classes)``, every stage); a window
+  is masked as a whole (its frame mask broadcast over W), never frame by
+  frame. A chunk's loss is divided by ``divisor · len(chunks)``, and a
+  trial's reported CE and MSE are the mean over its chunks.
+* **Multi-stage kinds** (``_ms``) emit ``(S, N, L, classes)``: the loss
+  sums over the stages (``LossMultiStage``) and the top-1/top-5 counts take
+  the last stage (``StatisticsMultiStage``, the default for these kinds).
 * **Gradient accumulation** keeps the JAX ``Trainer``'s exact divisors:
   every trial's loss is divided by ``batch_size``, except the ragged final
   group's, divided by ``len(dataset) % batch_size``; gradients add up in
   the parameters' ``.grad`` and Adam steps every ``batch_size`` trials and
   after the last one.
-* **trial_batch** (frame kind) stacks up to that many consecutive
+* **trial_batch** (frame kinds) stacks up to that many consecutive
   same-bucket trials into one forward, each with its own loss normalisation
   and divisor, never across an optimizer step or the ragged boundary.
   BatchNorm statistics then span the stack, as in the JAX package.
@@ -36,9 +41,8 @@ the ``window`` kind (Shift-GCN).
   :meth:`Trainer.load_adam_moments` writes moments imported from a
   reference checkpoint into Adam's state.
 
-Not ported yet: the ``_ms`` kinds (MS-TCN, MS-GCN), meshes and their
-parallel modes, the MS-TCN pipeline, ``pass_epoch`` and auxiliary losses
-(Shift-GCN++) (see ROADMAP.md).
+Not ported yet: meshes and their parallel modes, the pipelined MS-TCN,
+``pass_epoch`` and auxiliary losses (Shift-GCN++) (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from torch.func import functional_call
 
 from stgx_torch.parallel.segments import pad_to_bucket, sliding_windows
 from stgx_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
-from stgx_torch.utils.statistics import Statistics
+from stgx_torch.utils.statistics import Statistics, StatisticsMultiStage
 
 __all__ = ["Trainer", "OptimizerConfig", "MODEL_KIND"]
 
@@ -71,6 +75,8 @@ MODEL_KIND = {
 }
 
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+KINDS = ("frame", "frame_ms", "window", "window_ms")
+_FRAME_KINDS = ("frame", "frame_ms")
 
 
 @dataclass
@@ -92,26 +98,24 @@ class Trainer:
     """
 
     model: Any
-    kind: str  # 'frame' or 'window' (the '_ms' kinds are not ported)
+    kind: str  # 'frame' | 'frame_ms' | 'window' | 'window_ms'
     loss: Any
     opt: OptimizerConfig
     receptive_field: int = 50  # window size W of the window kind
     segment: int | None = None  # windows per chunk of the window kind
     bucket: int = 128  # length-bucket granularity
-    trial_batch: int = 1  # trials stacked into one forward (frame kind)
+    trial_batch: int = 1  # trials stacked into one forward (frame kinds)
     compute_dtype: str | None = None  # None / 'float32' or 'bfloat16'
-    statistics: Any = None  # top-1/top-5 strategy; Statistics() if unset
+    statistics: Any = None  # top-1/top-5 strategy; by the kind if unset
 
     def __post_init__(self):
-        if self.kind not in ("frame", "window"):
-            raise NotImplementedError(
-                f"Trainer kind {self.kind!r} is not ported to stgx_torch yet; "
-                "see ROADMAP.md"
-            )
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown Trainer kind {self.kind!r} (have {KINDS})")
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype: {self.compute_dtype!r}")
         if self.statistics is None:
-            self.statistics = Statistics()
+            self.statistics = (StatisticsMultiStage() if self.kind.endswith("_ms")
+                               else Statistics())
         self.device = next(self.model.parameters()).device
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=self.opt.learning_rate,
@@ -166,9 +170,10 @@ class Trainer:
     def _outputs(self, x, mask, train: bool, generator=None):
         """Per-frame outputs in fp32: ``(N, L, C)`` of N stacked trials, or
         ``(1, B, C)`` of a chunk of B windows ``(B, W, V, C)`` with the
-        ``(B,)`` mask, each window masked as a whole."""
+        ``(B,)`` mask, each window masked as a whole; a leading stage axis
+        for the ``_ms`` kinds."""
         dt = COMPUTE_DTYPES[self.compute_dtype]
-        if self.kind == "window" and mask is not None:
+        if self.kind.startswith("window") and mask is not None:
             mask = mask[:, None].expand(x.shape[0], x.shape[1])
         kwargs = {"mask": mask, "train": train, "generator": generator}
         if dt is None:
@@ -176,14 +181,14 @@ class Trainer:
         else:
             params = {k: p.to(dt) for k, p in self.model.named_parameters()}
             out = functional_call(self.model, params, (x.to(dt),), kwargs)
-        if self.kind == "window":
+        if self.kind == "window":  # window_ms models emit (S, 1, B, C) themselves
             out = out[None]
         return out.float()
 
     def _series(self, y, mask):
         """Labels and mask as the loss sees them: a window chunk's ``(B,)``
         become the ``(1, B)`` series of its outputs."""
-        if self.kind == "window":
+        if self.kind.startswith("window"):
             return y[None], None if mask is None else mask[None]
         return y, mask
 
@@ -226,17 +231,17 @@ class Trainer:
 
     def prepare(self, x, y):
         """One trial bucket-padded and laid out for the model kind, on the
-        device: ``(1, L, V, C)``, ``(1, L)``, ``(1, L)`` for the frame kind;
+        device: ``(1, L, V, C)``, ``(1, L)``, ``(1, L)`` for the frame kinds;
         its windows ``(L, W, V, C)``, labels ``(L,)`` and mask ``(L,)`` for
-        the window kind."""
+        the window kinds."""
         xb, yb, mb = self.stack_trials(*([a] for a in pad_to_bucket(x, y, self.bucket)))
-        if self.kind == "frame":
+        if self.kind in _FRAME_KINDS:
             return xb, yb, mb
         return sliding_windows(xb, self.receptive_field)[0], yb[0], mb[0]
 
     def chunks(self, x, y, mask):
         """A prepared trial split into ``segment``-sized chunks of windows
-        (window kind with ``segment`` set), else the trial whole.
+        (window kinds with ``segment`` set), else the trial whole.
 
         A chunk that holds no frame of the trial, only bucket padding, is
         left out. The JAX ``Trainer`` keeps it, and its masked loss is then
@@ -244,7 +249,7 @@ class Trainer:
         all padding (``segment`` divides ``bucket``, and the bucket ends
         less than a segment past the trial), the two agree exactly."""
         seg = self.segment
-        if seg is None or self.kind != "window" or x.shape[0] <= seg:
+        if seg is None or not self.kind.startswith("window") or x.shape[0] <= seg:
             return [(x, y, mask)]
         frames = max(1, int(mask.sum().item()))  # padding only follows them
         return [(x[i: i + seg], y[i: i + seg], mask[i: i + seg])
@@ -260,7 +265,7 @@ class Trainer:
         if generator is None:
             generator = self.epoch_generator(epoch)
         self.optimizer.zero_grad(set_to_none=True)
-        if self.trial_batch > 1 and self.kind == "frame":
+        if self.trial_batch > 1 and self.kind in _FRAME_KINDS:
             return self._batched_epoch(dataset, generator, log)
         n = len(dataset)
         bs = self.opt.batch_size
@@ -349,7 +354,7 @@ class Trainer:
         n_visit = len(dataset) if num_samples is None else min(len(dataset), num_samples)
         for m in metrics:
             m.init_metric(n_visit)
-        if self.trial_batch > 1 and self.kind == "frame":
+        if self.trial_batch > 1 and self.kind in _FRAME_KINDS:
             return self._evaluate_batched(dataset, metrics, n_visit, log)
         c1 = c5 = tot = 0
         ce_sum = mse_sum = 0.0
@@ -381,7 +386,7 @@ class Trainer:
                 "ce": ce_sum, "mse": mse_sum, "duration": time.time() - t0}
 
     def _evaluate_batched(self, dataset, metrics, n_visit, log):
-        """Frame-kind eval with same-bucket trials stacked per forward."""
+        """Frame-kinds eval with same-bucket trials stacked per forward."""
         c1 = c5 = tot = 0
         ce_sum = mse_sum = 0.0
         t0 = time.time()

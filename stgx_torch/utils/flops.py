@@ -1,12 +1,13 @@
-"""Analytic MACs and device-memory bytes of RT-ST-GCN and CoST-GCN — the
-port of those counters of ``stgx/utils/flops.py``. Pure arithmetic on the
-configuration; the same numbers as the JAX package's for the same
-arguments."""
+"""Analytic MACs, device-memory bytes and parameter counts — the port of
+``stgx/utils/flops.py``. Pure arithmetic on the configuration (or, for
+:func:`param_words`, on a model's parameters); the same numbers as the JAX
+package's for the same arguments."""
 
 from __future__ import annotations
 
-__all__ = ["rt_stgcn_macs_per_frame", "costgcn_macs_per_frame",
-           "rt_stgcn_train_hbm_bytes_per_frame", "stgcn_train_hbm_bytes_per_window"]
+__all__ = ["rt_stgcn_macs_per_frame", "costgcn_macs_per_frame", "stgcn_macs_per_window",
+           "rt_stgcn_train_hbm_bytes_per_frame", "stgcn_train_hbm_bytes_per_window",
+           "param_words"]
 
 
 def rt_stgcn_macs_per_frame(
@@ -54,6 +55,36 @@ def costgcn_macs_per_frame(
         if res and cin != cout:
             macs += v * cin * cout  # residual 1×1
     macs += out_ch[-1] * num_classes  # per-frame head
+    return macs
+
+
+def stgcn_macs_per_window(
+    window: int = 50,
+    num_joints: int = 25,
+    partitions: int = 3,
+    in_feat: int = 3,
+    num_classes: int = 52,
+    kernel: int = 9,
+    in_ch=(64, 64, 64, 64, 128, 128, 128, 256, 256),
+    out_ch=(64, 64, 64, 128, 128, 128, 256, 256, 256),
+    stride=(1, 1, 1, 2, 1, 1, 2, 1, 1),
+    residual=(1,) * 9,
+) -> int:
+    """MACs of one ST-GCN window classification: per layer the partition-wise
+    1×1 conv and the adjacency over the layer's input frames, the Γ-tap
+    temporal conv and the strided residual 1×1 over its output frames."""
+    v, p = num_joints, partitions
+    l = window
+    macs = l * v * in_feat * in_ch[0]
+    for cin, cout, s, res in zip(in_ch, out_ch, stride, residual):
+        macs += l * v * cin * cout * p  # gcn 1×1
+        macs += l * p * v * v * cout  # adjacency
+        lo = -(-l // s)
+        macs += lo * v * cout * cout * kernel  # temporal conv
+        if res and (cin != cout or s != 1):
+            macs += lo * v * cin * cout
+        l = lo
+    macs += out_ch[-1] * num_classes
     return macs
 
 
@@ -133,3 +164,8 @@ def stgcn_train_hbm_bytes_per_window(
         l = lo
     words += l * v * out_ch[-1]  # joint-pool read for the head
     return words * dtype_bytes * (1.0 + bwd_factor)
+
+
+def param_words(model) -> int:
+    """Parameter count of a model (the reference table's "memory words")."""
+    return sum(p.numel() for p in model.parameters())

@@ -1,10 +1,12 @@
 """Reference PyTorch checkpoints in and out — the port of
-``stgx/utils/torch_import.py`` for the families the port has.
+``stgx/utils/torch_import.py``.
 
 The reference implementation trains with PyTorch and saves ``{epoch,
 model_state_dict, optimizer_state_dict, loss}``. This module turns such a
 ``model_state_dict`` into the JAX package's parameter tree for an
-RT-ST-GCN or a CoST-GCN (the same tree, leaf for leaf, that
+RT-ST-GCN, a CoST-GCN, an ST-GCN, an MS-TCN, an MS-GCN (whose checkpoint
+holds two dicts, ``generator_stage`` and ``refinement_stages``) or an
+AA-GCN (the same tree, leaf for leaf, that
 ``stgx.utils.torch_import.import_reference_state_dict`` gives), which
 :func:`stgx_torch.weights.from_jax_params` then maps onto the port's
 ``state_dict``; :func:`load_reference_into` does both. The reverse
@@ -17,11 +19,8 @@ prefixes of a DataParallel dict are dropped. A file is read with
 ``torch.load(weights_only=True)``, which runs no code from the file: a
 file that holds objects such a load refuses fails with its message.
 
-The reference's other families with an importer in the JAX package
-(``st-gcn``, ``ms-tcn``, ``ms-gcn``, ``aa-gcn``) raise
-``NotImplementedError`` until their models are ported (ROADMAP.md, queue
-1). Shift-GCN has no reference checkpoints, and no importer in either
-package.
+Shift-GCN has no reference checkpoints, and no importer in either
+package: a name without an importer raises ``ValueError``.
 
 Layout transforms (reference → JAX tree):
 
@@ -38,11 +37,18 @@ edge importance     per-layer (P, V, V)      stacked (layers, P, V, V)
 ==================  =======================  =========================
 
 Names: RT-ST-GCN's layers are ``st_gcn.i`` (graph conv ``conv``, norm
-``bn_relu.0``, edge importance ``st_gcn.i.edge_importance``); CoST-GCN
-keeps ST-GCN's: ``gcn_networks.i`` (graph conv ``gcn.conv``, norms
-``tcn.0`` and ``tcn.3`` around the temporal conv ``tcn.2``, the residual
-``residual.0`` with its bias and ``residual.1``, edge importance
-``edge_importance.i``).
+``bn_relu.0``, edge importance ``st_gcn.i.edge_importance``); ST-GCN's, and
+CoST-GCN's after it, are ``gcn_networks.i`` (graph conv ``gcn.conv``,
+norms ``tcn.0`` and ``tcn.3`` around the temporal conv ``tcn.2``, the
+residual ``residual.0`` with its bias and ``residual.1``, edge importance
+``edge_importance.i``). MS-TCN's stages are ``generator_stage`` and
+``refinement_stages.s`` (``conv_in``, ``conv_out``, ``layers.j.conv.0``
+the dilated conv and ``layers.j.conv.2`` the 1×1); AA-GCN's streams
+``streams.{0,1}`` (``norm_in``, ``fcn_in``, ``fcn_out``,
+``gcn_networks.i.{B,theta,phi}`` and the ST-GCN layer
+``gcn_networks.i.st_gcn``). The reference AA-GCN has no edge importance:
+an import sets it to ones (the identity mask) and an export folds it into
+``B`` (``B + A·(importance − 1)``), both lossless for the forward.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stgx_torch.models.aagcn import AaGcn
+from stgx_torch.models.msgcn import MsGcn
 from stgx_torch.models.rtstgcn import RtStgcn
 from stgx_torch.weights import from_jax_params
 
@@ -61,19 +69,12 @@ __all__ = [
     "import_reference_optimizer",
 ]
 
-# families the JAX package imports whose models the port lacks
-_NOT_PORTED = ("st-gcn", "ms-tcn", "ms-gcn", "aa-gcn")
-_FAMILIES = ("rt-st-gcn", "co-st-gcn")
+_FAMILIES = ("st-gcn", "rt-st-gcn", "co-st-gcn", "ms-tcn", "ms-gcn", "aa-gcn")
 
 
 def _check_family(name: str) -> None:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"reference checkpoints of {name!r} are not ported to stgx_torch yet; "
-            "see the module queue (queue 1) in ROADMAP.md"
-        )
     if name not in _FAMILIES:
-        raise ValueError(f"no importer for {name!r}; supported: {list(_FAMILIES)}")
+        raise ValueError(f"no importer for {name!r}; supported: {sorted(_FAMILIES)}")
 
 
 def _np(v) -> np.ndarray:
@@ -168,25 +169,98 @@ def _import_layer(sd, base, kind, V, out_ch, res_conv, rt):
     return lp
 
 
-def _import_body(sd, model) -> dict:
+def _import_body(sd, model, prefix="") -> dict:
+    """The shared ST-GCN body (norm_in, fcn_in, layers, fcn_out, edge
+    importance) at an optional key prefix of ``sd``."""
     kind, V = _kind(model), model.num_joints
     rt, layer_key = _names(model)
     p = {
-        "norm_in": _norm(sd, "norm_in", kind, V, per_joint_bn=True),
-        "fcn_in": _conv1x1(sd, "fcn_in"),
-        "fcn_out": _conv1x1(sd, "fcn_out"),
+        "norm_in": _norm(sd, f"{prefix}norm_in", kind, V, per_joint_bn=True),
+        "fcn_in": _conv1x1(sd, f"{prefix}fcn_in"),
+        "fcn_out": _conv1x1(sd, f"{prefix}fcn_out"),
     }
     imp = []
     for i in range(len(model.in_ch)):
-        base = f"{layer_key}.{i}"
+        base = f"{prefix}{layer_key}.{i}"
         p[f"layers_{i}"] = _import_layer(sd, base, kind, V, model.out_ch[i],
                                          _has_res_conv(model, i), rt)
-        imp_key = f"{base}.edge_importance" if rt else f"edge_importance.{i}"
+        imp_key = f"{base}.edge_importance" if rt else f"{prefix}edge_importance.{i}"
         if imp_key in sd:
             imp.append(_np(sd[imp_key]))
     if imp:
         p["edge_importance"] = np.stack(imp)
-    return {"params": p}
+    return p
+
+
+def _import_single_stage(sd, base, num_layers):
+    sp = {"Dense_0": _conv1x1(sd, f"{base}.conv_in"),
+          "Dense_1": _conv1x1(sd, f"{base}.conv_out")}
+    for j in range(num_layers):
+        lb = f"{base}.layers.{j}.conv"
+        cw, cb = _tconv(sd, f"{lb}.0")
+        sp[f"DilatedResidualLayer_{j}"] = {"conv_kernel": cw, "conv_bias": cb,
+                                           "Dense_0": _conv1x1(sd, f"{lb}.2")}
+    return sp
+
+
+def _import_mstcn(sd, model) -> dict:
+    return {f"SingleStage_{s}": _import_single_stage(
+        sd, "generator_stage" if s == 0 else f"refinement_stages.{s - 1}", model.layers[s])
+        for s in range(model.stages)}
+
+
+def _split_msgcn(sd):
+    """MS-GCN's checkpoint as ``(generator dict, refinement dict)``: the
+    reference saves two dicts, ``generator_stage`` (an ST-GCN's, perhaps
+    with DataParallel prefixes) and ``refinement_stages``; a whole-model
+    dict holds both under those prefixes."""
+    if "generator_stage" in sd:
+        return (_unwrap(dict(sd["generator_stage"])),
+                {f"refinement_stages.{k}": v for k, v in dict(sd["refinement_stages"]).items()})
+    gen = {k.removeprefix("generator_stage."): v for k, v in sd.items()
+           if k.startswith("generator_stage.")}
+    return gen, {k: v for k, v in sd.items() if k.startswith("refinement_stages.")}
+
+
+def _import_msgcn(sd, model) -> dict:
+    gen_sd, ref_sd = _split_msgcn(sd)
+    p = {"Stgcn_0": _import_body(gen_sd, model.generator_stage)}
+    for s in range(model.stages):
+        p[f"SingleStage_{s}"] = _import_single_stage(ref_sd, f"refinement_stages.{s}",
+                                                     model.layers[s])
+    return p
+
+
+def _import_aagcn(sd, model) -> dict:
+    p = {}
+    for s, stream in enumerate(("joint_stream", "bone_stream")):
+        st = getattr(model, stream)
+        kind, V = _kind(st), model.num_joints
+        sp = {
+            f"{kind}_0": _norm(sd, f"streams.{s}.norm_in", kind, V, per_joint_bn=True),
+            "Dense_0": _conv1x1(sd, f"streams.{s}.fcn_in"),
+            "Dense_1": _conv1x1(sd, f"streams.{s}.fcn_out"),
+            "edge_importance": np.ones(
+                (len(model.in_ch),) + _np(sd[f"streams.{s}.gcn_networks.0.B"]).shape,
+                np.float32),
+        }
+        for i, agcn in enumerate(st.layers):
+            base = f"streams.{s}.gcn_networks.{i}"
+            sp[f"AgcnLayer_{i}"] = {
+                "B": _np(sd[f"{base}.B"]),
+                "theta_kernel": _conv1x1(sd, f"{base}.theta")["kernel"],
+                "theta_bias": _np(sd[f"{base}.theta.bias"]),
+                "phi_kernel": _conv1x1(sd, f"{base}.phi")["kernel"],
+                "phi_bias": _np(sd[f"{base}.phi.bias"]),
+                "StgcnLayer_0": _import_layer(sd, f"{base}.st_gcn", kind, V, model.out_ch[i],
+                                              hasattr(agcn.layer, "res_kernel"), rt=False),
+            }
+        p[stream] = sp
+    return p
+
+
+# family → tree of the checkpoint's dict
+_IMPORTERS = {"ms-tcn": _import_mstcn, "ms-gcn": _import_msgcn, "aa-gcn": _import_aagcn}
 
 
 def import_reference_state_dict(state_dict, model, name: str) -> dict:
@@ -194,7 +268,7 @@ def import_reference_state_dict(state_dict, model, name: str) -> dict:
     the JAX parameter tree of ``model``, a port model of family ``name``
     built with the checkpoint's architecture."""
     _check_family(name)
-    return _import_body(_unwrap(state_dict), model)
+    return {"params": _IMPORTERS.get(name, _import_body)(_unwrap(state_dict), model)}
 
 
 def load_reference_checkpoint(path: str, model, name: str) -> dict:
@@ -250,39 +324,108 @@ def _emit(sd, base, tensors):
         sd[f"{base}.{k}"] = v
 
 
+def _export_layer(sd, base, lp, kind, res_conv, rt):
+    _emit(sd, f"{base}.conv" if rt else f"{base}.gcn.conv", _inv_graph_conv(lp["GraphConv_0"]))
+    idx = 0
+    if res_conv:
+        sd[f"{base}.residual.0.weight"] = _np(lp["res_kernel"]).T[:, :, None, None]
+        if "res_bias" in lp:
+            sd[f"{base}.residual.0.bias"] = _np(lp["res_bias"])
+        _emit(sd, f"{base}.residual.1", _inv_norm(lp[f"{kind}_{idx}"], kind))
+        idx += 1
+    if rt:
+        _emit(sd, f"{base}.bn_relu.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
+    else:
+        _emit(sd, f"{base}.tcn.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
+        _emit(sd, f"{base}.tcn.2", _inv_tconv(lp["tcn_kernel"], lp["tcn_bias"]))
+        _emit(sd, f"{base}.tcn.3", _inv_norm(lp[f"{kind}_{idx + 1}"], kind))
+
+
+def _graph_A(model) -> np.ndarray:
+    return model.A.detach().cpu().numpy().astype(np.float32)
+
+
+def _export_body(p, model, sd, prefix=""):
+    kind = _kind(model)
+    rt, layer_key = _names(model)
+    _emit(sd, f"{prefix}norm_in", _inv_norm(p["norm_in"], kind, per_joint_bn=True))
+    _emit(sd, f"{prefix}fcn_in", _inv_conv1x1(p["fcn_in"]))
+    _emit(sd, f"{prefix}fcn_out", _inv_conv1x1(p["fcn_out"]))
+    for i in range(len(model.in_ch)):
+        base = f"{prefix}{layer_key}.{i}"
+        _export_layer(sd, base, p[f"layers_{i}"], kind, _has_res_conv(model, i), rt)
+        if "edge_importance" in p:
+            key = f"{base}.edge_importance" if rt else f"{prefix}edge_importance.{i}"
+            sd[key] = _np(p["edge_importance"][i])
+    sd[f"{prefix}A"] = _graph_A(model)
+    return sd
+
+
+def _export_single_stage(sd, base, sp, num_layers):
+    _emit(sd, f"{base}.conv_in", _inv_conv1x1(sp["Dense_0"]))
+    _emit(sd, f"{base}.conv_out", _inv_conv1x1(sp["Dense_1"]))
+    for j in range(num_layers):
+        lp = sp[f"DilatedResidualLayer_{j}"]
+        _emit(sd, f"{base}.layers.{j}.conv.0", _inv_tconv(lp["conv_kernel"], lp["conv_bias"]))
+        _emit(sd, f"{base}.layers.{j}.conv.2", _inv_conv1x1(lp["Dense_0"]))
+
+
+def _export_mstcn(p, model):
+    sd = {}
+    for s in range(model.stages):
+        _export_single_stage(sd, "generator_stage" if s == 0 else f"refinement_stages.{s - 1}",
+                             p[f"SingleStage_{s}"], model.layers[s])
+    return sd
+
+
+def _export_msgcn(p, model):
+    """The two-part dict the reference saves."""
+    gen = _export_body(p["Stgcn_0"], model.generator_stage, {})
+    ref = {}
+    for s in range(model.stages):
+        _export_single_stage(ref, str(s), p[f"SingleStage_{s}"], model.layers[s])
+    return {"generator_stage": gen, "refinement_stages": ref}
+
+
+def _export_aagcn(p, model):
+    """The edge importance folds into the free matrix: ``B' = B + A·(imp −
+    1)`` gives the reference's ``A + B' + C`` the port's ``A·imp + B + C``."""
+    A = _graph_A(model)
+    sd = {}
+    for s, stream in enumerate(("joint_stream", "bone_stream")):
+        sp, st = p[stream], getattr(model, stream)
+        kind = _kind(st)
+        imp = _np(sp["edge_importance"]) if "edge_importance" in sp else None
+        _emit(sd, f"streams.{s}.norm_in", _inv_norm(sp[f"{kind}_0"], kind, per_joint_bn=True))
+        _emit(sd, f"streams.{s}.fcn_in", _inv_conv1x1(sp["Dense_0"]))
+        _emit(sd, f"streams.{s}.fcn_out", _inv_conv1x1(sp["Dense_1"]))
+        for i, agcn in enumerate(st.layers):
+            base, lp = f"streams.{s}.gcn_networks.{i}", sp[f"AgcnLayer_{i}"]
+            B = _np(lp["B"])
+            sd[f"{base}.B"] = B if imp is None else B + A * (imp[i] - 1.0)
+            _emit(sd, f"{base}.theta", _inv_conv1x1(
+                {"kernel": lp["theta_kernel"], "bias": lp["theta_bias"]}))
+            _emit(sd, f"{base}.phi", _inv_conv1x1(
+                {"kernel": lp["phi_kernel"], "bias": lp["phi_bias"]}))
+            _export_layer(sd, f"{base}.st_gcn", lp["StgcnLayer_0"], kind,
+                          hasattr(agcn.layer, "res_kernel"), rt=False)
+    sd["A"] = A
+    return sd
+
+
+_EXPORTERS = {"ms-tcn": _export_mstcn, "ms-gcn": _export_msgcn, "aa-gcn": _export_aagcn}
+
+
 def export_reference_state_dict(params: dict, model, name: str) -> dict:
     """The JAX parameter tree ``params`` of ``model`` (for the port's own
     weights: :func:`stgx_torch.weights.to_jax_params`) in the reference's
     state-dict naming, as numpy arrays, with the ``A`` adjacency buffer the
-    reference model registers."""
+    reference model registers (MS-GCN: the reference's two-part dict)."""
     _check_family(name)
-    p, kind, sd = params["params"], _kind(model), {}
-    rt, layer_key = _names(model)
-    _emit(sd, "norm_in", _inv_norm(p["norm_in"], kind, per_joint_bn=True))
-    _emit(sd, "fcn_in", _inv_conv1x1(p["fcn_in"]))
-    _emit(sd, "fcn_out", _inv_conv1x1(p["fcn_out"]))
-    for i in range(len(model.in_ch)):
-        base, lp = f"{layer_key}.{i}", p[f"layers_{i}"]
-        _emit(sd, f"{base}.conv" if rt else f"{base}.gcn.conv",
-              _inv_graph_conv(lp["GraphConv_0"]))
-        idx = 0
-        if _has_res_conv(model, i):
-            sd[f"{base}.residual.0.weight"] = _np(lp["res_kernel"]).T[:, :, None, None]
-            if "res_bias" in lp:
-                sd[f"{base}.residual.0.bias"] = _np(lp["res_bias"])
-            _emit(sd, f"{base}.residual.1", _inv_norm(lp[f"{kind}_{idx}"], kind))
-            idx += 1
-        if rt:
-            _emit(sd, f"{base}.bn_relu.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
-        else:
-            _emit(sd, f"{base}.tcn.0", _inv_norm(lp[f"{kind}_{idx}"], kind))
-            _emit(sd, f"{base}.tcn.2", _inv_tconv(lp["tcn_kernel"], lp["tcn_bias"]))
-            _emit(sd, f"{base}.tcn.3", _inv_norm(lp[f"{kind}_{idx + 1}"], kind))
-        if "edge_importance" in p:
-            key = f"{base}.edge_importance" if rt else f"edge_importance.{i}"
-            sd[key] = _np(p["edge_importance"][i])
-    sd["A"] = model.A.detach().cpu().numpy().astype(np.float32)
-    return sd
+    p = params["params"]
+    if name in _EXPORTERS:
+        return _EXPORTERS[name](p, model)
+    return _export_body(p, model, {})
 
 
 # -- optimizer state ----------------------------------------------------------
@@ -298,13 +441,20 @@ def import_reference_optimizer(checkpoint: dict, model, name: str):
     transforms apply as they are.
 
     Returns ``(mu, nu, count)``: two trees shaped like the parameters and
-    the least Adam step count.
+    the least Adam step count. MS-GCN's flat order is its two dicts', the
+    generator's parameters first. AA-GCN's edge importance, which the
+    reference lacks, gets zero moments.
     """
     _check_family(name)
-    msd = _unwrap(checkpoint["model_state_dict"] if "model_state_dict" in checkpoint
-                  else checkpoint)
+    msd = checkpoint["model_state_dict"] if "model_state_dict" in checkpoint else checkpoint
     osd = checkpoint["optimizer_state_dict"]
-    param_keys = [k for k in msd if k != "A"]
+    if name == "ms-gcn":
+        gen = _unwrap(dict(msd["generator_stage"]))
+        param_keys = ([f"generator_stage/{k}" for k in gen if k != "A"]
+                      + [f"refinement_stages/{k}" for k in msd["refinement_stages"]])
+    else:
+        msd = _unwrap(msd)
+        param_keys = [k for k in msd if k != "A"]
     state = osd["state"]
     order = osd["param_groups"][0]["params"]
     if len(order) != len(param_keys):
@@ -314,8 +464,19 @@ def import_reference_optimizer(checkpoint: dict, model, name: str):
         )
 
     def moment_tree(field):
-        return _import_body({k: state[idx][field] for k, idx in zip(param_keys, order)},
-                            model)
+        flat = {k: state[idx][field] for k, idx in zip(param_keys, order)}
+        if name == "ms-gcn":
+            two = {"generator_stage": {}, "refinement_stages": {}}
+            for k, v in flat.items():
+                part, sub = k.split("/", 1)
+                two[part][sub] = v
+            flat = two
+        tree = import_reference_state_dict(flat, model, name)
+        if name == "aa-gcn":
+            for stream in ("joint_stream", "bone_stream"):
+                imp = tree["params"][stream]["edge_importance"]
+                tree["params"][stream]["edge_importance"] = np.zeros_like(imp)
+        return tree
 
     count = int(min(float(_np(state[i]["step"])) for i in order))
     return moment_tree("exp_avg"), moment_tree("exp_avg_sq"), count

@@ -48,7 +48,9 @@ def test_port_imports_nothing_of_jax_or_stgx():
             "stgx_torch.utils.loss", "stgx_torch.cli", "stgx_torch.bench.headline",
             "stgx_torch.utils.metrics", "stgx_torch.utils.checkpoint",
             "stgx_torch.utils.torch_import", "stgx_torch.utils.notify",
-            "stgx_torch.data.prefetch", "stgx_torch.models._remat"} <= set(modules)
+            "stgx_torch.data.prefetch", "stgx_torch.models._remat",
+            "stgx_torch.models.stgcn", "stgx_torch.models.aagcn", "stgx_torch.models.mstcn",
+            "stgx_torch.models.msgcn", "stgx_torch.parallel.segments"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *(f"importlib.import_module({m!r})" for m in modules),

@@ -107,11 +107,26 @@ def test_serving_arguments(monkeypatch):
 
 
 def test_the_st_gcn_int8_cell_waits_for_stgcn():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        QUANT_MODELS["st-gcn"]
+    """The int8 ST-GCN window cell is ported (the name is kept from when it
+    raised): it quantizes an ST-GCN, steps its window buffer (float32 or
+    bfloat16) and refuses int8 state, as the JAX cell does; a family
+    without an int8 cell is a ``KeyError``."""
+    quantize, step, init = QUANT_MODELS["st-gcn"]
+    model = MODELS["st-gcn"](num_classes=5, in_feat=3, graph=load_skeleton("pku-mmd"),
+                             kernel=3, in_ch=(8, 8), out_ch=(8, 16), stride=(1, 2),
+                             residual=(1, 1), dropout=(0.0, 0.0), device="cpu")
+    qparams = quantize(model)
+    for dtype in (torch.float32, torch.bfloat16):
+        state = init(model, batch=2, dtype=dtype, window=10)
+        assert state["buf"].shape == (2, 10, 25, 3) and state["buf"].dtype == dtype
+        logits, state = step(model, qparams, state, torch.ones(2, 25, 3))
+        assert logits.shape == (2, 5) and bool(torch.isfinite(logits).all())
+        assert torch.equal(state["buf"][:, -1], torch.ones(2, 25, 3, dtype=dtype))
+    with pytest.raises(ValueError, match="raw input frames"):
+        init(model, dtype=torch.int8)
     with pytest.raises(KeyError):
         QUANT_MODELS["shift-gcn"]
-    assert sorted(QUANT_MODELS) == sorted(NAMES)
+    assert sorted(QUANT_MODELS) == sorted(NAMES + ["st-gcn"])
 
 
 def test_device_measurements_refuse_the_cpu(monkeypatch):

@@ -380,8 +380,15 @@ def test_set_lr_decays_per_epoch(synth):
 
 
 def test_unported_kinds_and_cpu_measurement_refuse(synth):
+    """The ``_ms`` kinds are ported (the name is kept from when they were
+    refused): ``window_ms`` is accepted, with the multi-stage statistics by
+    default; a kind the JAX package lacks raises ``ValueError``."""
+    from stgx_torch.utils import StatisticsMultiStage
+
     _, _, _, tt = _pair(synth, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(model=tt.model, kind="window_ms", loss=tt.loss, opt=tt.opt)
+    ms = Trainer(model=tt.model, kind="window_ms", loss=tt.loss, opt=tt.opt)
+    assert isinstance(ms.statistics, StatisticsMultiStage)
+    with pytest.raises(ValueError, match="unknown Trainer kind"):
+        Trainer(model=tt.model, kind="window_pipelined", loss=tt.loss, opt=tt.opt)
     with pytest.raises(RuntimeError, match="device measurement"):
         measure_train_throughput(tt, trials=1, frames=8)
