@@ -55,13 +55,14 @@ every family tensor-parallel (:mod:`stgx_torch.parallel.tp`; Shift-GCN++'s
 teacher is grafted whole before its parameters are cut to the blocks), or
 with ``arch.pipeline`` MS-TCN's refinement stages one a ``model`` rank
 (:mod:`stgx_torch.parallel.pipeline`; ``configs/synth/mstcn_pp.json``).
-Expert parallelism (:mod:`stgx_torch.parallel.ep`) is a library, reached
-by no config, as in the JAX package. Not ported yet, each refused with its
-place in ROADMAP.md's queue 1 item 10: ``seq`` past 1 for any kind but
-``frame`` outside the pipeline (10.3) and ``arch.remat`` under a mesh
-(10.4); and an
-``arch.gcn_impl`` other than the hand-written kernels, since the port has
-no other graph-conv route on the card.
+``job.mesh.seq`` past 1 splits the frames over ``seq`` for every kind (a
+trial's for the frame kinds, each window's W for the window kinds, where
+they divide; :mod:`stgx_torch.parallel.halo`). Expert parallelism
+(:mod:`stgx_torch.parallel.ep`) is a library, reached by no config, as in
+the JAX package. Refused: ``arch.remat`` under a mesh (not ported yet,
+ROADMAP.md's queue 1 item 10.4), and an ``arch.gcn_impl`` other than the
+hand-written kernels, since the port has no other graph-conv route on the
+card.
 """
 
 from __future__ import annotations

@@ -26,11 +26,16 @@ share of its gradient (its block's graph conv reads all of it), so the
 gradients of ``θ``, ``φ``, ``B`` and the edge importance are complete on
 every rank and none is partial.
 
+Under sequence parallelism each layer's attention scores, a sum over the
+window's frames, add every ``seq`` rank's frames before the softmax; the
+rest is ST-GCN's (:mod:`stgx_torch.models.stgcn`).
+
 Output: ``(N, num_classes)`` per window.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Sequence
 
 import numpy as np
@@ -48,6 +53,8 @@ from stgx_torch.models.stgcn import (
     torch_bias_init,
     torch_conv_init,
 )
+from stgx_torch.parallel.halo import decimate, frame_mean, frame_split
+from stgx_torch.parallel.mesh import strided_layout, sum_parts
 from stgx_torch.parallel.tp import enter
 
 __all__ = ["bone_parents", "bone_vectors", "AgcnLayer", "AaGcn"]
@@ -109,6 +116,9 @@ class AgcnLayer(nn.Module):
         phi = (x @ self.phi_kernel + self.phi_bias).reshape(n, l, v, self.partitions, self.emb)
         # attention over the full window: embedding channels and time contracted
         scores = torch.einsum("nlvpe,nlwpe->npvw", theta.to(acc), phi.to(acc))
+        frames = frame_split()
+        if frames is not None:  # every seq rank's frames, summed before the softmax
+            scores = sum_parts(scores, frames.group)
         C = torch.softmax(scores, dim=-1).to(x.dtype)
         # (N, P, V, V); under tensor parallelism each rank's block sees all of it
         A_total = enter(A[None] + self.B[None] + C, self.layer.channels)
@@ -140,15 +150,17 @@ class _Stream(nn.Module):
 
     def forward(self, x, A, mask=None, train: bool = False, generator=None):
         x = self.fcn_in(self.norm_in(x, mask=mask))
-        for i, layer in enumerate(self.layers):
-            A_i = A * self.edge_importance[i] if self.importance else A
-            if self.remat and train:
-                x = checkpointed(layer, x, A_i, mask=mask, train=True, generator=generator)
-            else:
-                x = layer(x, A_i, mask=mask, train=train, generator=generator)
-            if mask is not None:  # strided layers shorten the frame axis
-                mask = mask[:, :: self.stride[i]]
-        return self.fcn_out(x.mean(dim=(1, 2)))
+        with contextlib.ExitStack() as layouts:
+            for i, layer in enumerate(self.layers):
+                A_i = A * self.edge_importance[i] if self.importance else A
+                if self.remat and train:
+                    x = checkpointed(layer, x, A_i, mask=mask, train=True, generator=generator)
+                else:
+                    x = layer(x, A_i, mask=mask, train=train, generator=generator)
+                # strided layers shorten the frame axis
+                mask = decimate(mask, self.stride[i], frame_split())
+                layouts.enter_context(strided_layout(self.stride[i]))
+            return self.fcn_out(frame_mean(x, frames=frame_split()))
 
 
 class AaGcn(nn.Module):

@@ -22,11 +22,14 @@ the ST-GCN's input norm and head and every ``conv_out`` stay whole
 (``TP_PARTIAL``).
 
 Under a mesh whose ``data`` ranks split the windows, the generator runs on
-this rank's windows; the refinement convolves across the windows, so its
-input, the generator's scores, is gathered whole over ``data``
-(:func:`~stgx_torch.parallel.mesh.gather_parts`, ``T × classes`` numbers),
-every rank runs the refinement on the whole chunk, and each stage's output
-is cut back to this rank's windows.
+this rank's windows and the refinement on its block of the chunk's time
+axis (the windows), as GSPMD splits it for the JAX package: each dilated
+conv takes the frames past the block from the other data ranks as halos
+(:func:`~stgx_torch.parallel.halo.sp_temporal_conv`, a dilation of up to
+2⁹ reaching past several blocks), and dropout keeps its block of the
+whole chunk's mask. Under ``seq`` the generator's windows are split over
+the frames (:class:`~stgx_torch.models.stgcn.Stgcn`), its scores are whole
+on every ``seq`` rank and the refinement runs on them there.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from stgx_torch import default_device
 from stgx_torch.models import mstcn, stgcn
 from stgx_torch.models.mstcn import SingleStage, output_adapter, stage_tp_modules
 from stgx_torch.models.stgcn import Stgcn
-from stgx_torch.parallel.mesh import Split, current_shards, gather_parts, use_shards
+from stgx_torch.parallel.mesh import Shards, Split, current_shards, equal_split, use_shards
 
 __all__ = ["MsGcn"]
 
@@ -108,12 +111,22 @@ class MsGcn(nn.Module):
         ``data`` split this rank's T windows of each)."""
         y = self.generator_stage(windows, mask=mask, train=train, generator=generator)[None]
         outputs = [self.out(y)]
-        shards = current_shards()
-        windows_split = Split() if shards is None else shards.n
-        y = gather_parts(y, windows_split, 1)
-        with use_shards(None):  # the refinement runs on the whole chunk
+        with use_shards(self._refine_layout(y.shape[1])):
             for stage in self.refinement_stages:
                 y = stage(self.prob(y)[:, :, None, :], train=train,
                           generator=generator)[:, :, 0, :]
-                outputs.append(self.out(windows_split.part(y, 1)))
+                outputs.append(self.out(y))
         return torch.stack(outputs)
+
+    @staticmethod
+    def _refine_layout(windows: int):
+        """The refinement's layout: the chunk's windows, its time axis, split
+        over ``data`` as the generator's batch is (this rank's ``windows``
+        of them), so that its dilated convs exchange halos with the other
+        data ranks; None where the windows are whole. The ``seq`` ranks hold
+        replicas of it."""
+        shards = current_shards()
+        if shards is None or shards.n.size == 1:
+            return None
+        t = equal_split(shards.n, windows * shards.n.size)
+        return Shards(Split(), t, t.group, t.size, shards.device)

@@ -25,6 +25,10 @@ block, the ReLU acts on it, the blocks are gathered whole for the 1×1
 dropout and the residual add act on the whole activation. ``conv_out``
 stays whole (``TP_WHOLE``): its class scores feed the loss and the next
 stage's adapter whole.
+
+Under sequence parallelism (a trial's frames over ``seq``) each dilated
+conv takes its ``dilation`` frames a side as halos, gathered from as many
+ranks' blocks as they span (dilations reach 512 frames).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from stgx_torch import default_device
 from stgx_torch.models._remat import checkpointed
 from stgx_torch.models.stgcn import Dense, dropout, torch_bias_init, torch_conv_init
 from stgx_torch.ops.temporal import temporal_conv
+from stgx_torch.parallel.halo import frame_split, sp_temporal_conv
 from stgx_torch.parallel.mesh import Split
 from stgx_torch.parallel.tp import enter, gather_channels
 
@@ -85,10 +90,16 @@ class DilatedResidualLayer(nn.Module):
 
     def forward(self, x, train: bool = False, generator: torch.Generator | None = None):
         c = self.channels
+        frames = frame_split()
         # padded by the dilation on both sides whatever the kernel (the
-        # reference's padding): the same length only for kernel 3
-        y = temporal_conv(enter(x, c), self.conv_kernel, self.conv_bias,
-                          dilation=self.dilation, padding=self.dilation)
+        # reference's padding): the same length only for kernel 3; under seq
+        # the padding's frames are halos, which may span several ranks' blocks
+        if frames is None:
+            y = temporal_conv(enter(x, c), self.conv_kernel, self.conv_bias,
+                              dilation=self.dilation, padding=self.dilation)
+        else:
+            y = sp_temporal_conv(enter(x, c), self.conv_kernel, self.conv_bias,
+                                 dilation=self.dilation, padding=self.dilation, frames=frames)
         y = self.pointwise(gather_channels(torch.relu(y), c))
         if train and self.dropout > 0:
             y = dropout(y, self.dropout, generator)

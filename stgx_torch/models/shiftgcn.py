@@ -28,6 +28,12 @@ whole input after ``enter`` (``feature_mask``) or on a block through
 each rank: they are partial (``TP_PARTIAL``), summed over ``model``. The
 input norm and the head stay whole (``TP_WHOLE``).
 
+Under sequence parallelism (the mesh's ``seq`` axis) both temporal shifts
+run on each rank's block extended by its halos
+(:func:`~stgx_torch.parallel.halo.sp_temporal_shift`), the strided
+residual and mask take the block's global phase, and the head's mean adds
+every rank's frames.
+
 BatchNorm keeps no running stats (the framework-wide BN adaptation), as in
 the JAX package. A window ``(N, W, V, C)`` gives ``(N, num_classes)``; the
 window ``Trainer`` kind and the window streaming cell turn that into
@@ -36,6 +42,7 @@ per-frame predictions.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Sequence
 
 import torch
@@ -45,8 +52,9 @@ from stgx_torch import default_device
 from stgx_torch.graph import Graph
 from stgx_torch.models._remat import checkpointed
 from stgx_torch.models.stgcn import Dense, make_norm, torch_bias_init, torch_conv_init
-from stgx_torch.ops.shift import spatial_shift, spatial_shift_index, temporal_shift
-from stgx_torch.parallel.mesh import Split
+from stgx_torch.ops.shift import spatial_shift, spatial_shift_index
+from stgx_torch.parallel.halo import decimate, frame_mean, frame_split, sp_temporal_shift
+from stgx_torch.parallel.mesh import Split, strided_layout
 from stgx_torch.parallel.tp import enter, gather_channels
 
 __all__ = ["shift_init", "SpatialShiftBlock", "TemporalShiftBlock", "ShiftUnit",
@@ -140,13 +148,13 @@ class TemporalShiftBlock(nn.Module):
         """Under tensor parallelism ``x`` and the output are this rank's
         channel block."""
         c = self.channels
+        frames = frame_split()
         x = self.in_norm(x, mask=mask)
-        x = temporal_shift(x, c.part(self.shift_in, -1))
+        x = sp_temporal_shift(x, c.part(self.shift_in, -1), frames=frames)
         # the 1×1 linear contracts over every channel
         x = torch.relu(enter(gather_channels(x, c), c) @ self.linear_kernel + self.linear_bias)
-        x = temporal_shift(x, c.part(self.shift_out, -1), stride=self.stride)
-        smask = mask[:, :: self.stride] if mask is not None else None
-        return self.out_norm(x, mask=smask)
+        x = sp_temporal_shift(x, c.part(self.shift_out, -1), self.stride, frames)
+        return self.out_norm(x, mask=decimate(mask, self.stride, frames))
 
 
 class ShiftUnit(nn.Module):
@@ -186,9 +194,10 @@ class ShiftUnit(nn.Module):
             return gather_channels(y, c)
         if self.identity:
             return gather_channels(y + c.part(x, -1), c)
-        smask = mask[:, :: self.stride] if mask is not None else None
-        res = x[:, :: self.stride] @ self.res_kernel + self.res_bias
-        return gather_channels(y + self.res_norm(res, mask=smask), c)
+        frames = frame_split()
+        res = decimate(x, self.stride, frames) @ self.res_kernel + self.res_bias
+        return gather_channels(y + self.res_norm(res, mask=decimate(mask, self.stride, frames)),
+                               c)
 
     def forward(self, x, mask=None):
         return torch.relu(self.preactivation(x, mask))
@@ -249,8 +258,10 @@ class ShiftGcn(nn.Module):
         ``train`` and ``generator`` are accepted for the Trainer's call and
         unused (Shift-GCN has no dropout)."""
         x = self.data_bn(x, mask=mask)
-        for unit in self.units:
-            x = checkpointed(unit, x, mask=mask) if self.remat and train else unit(x, mask=mask)
-            if unit.stride > 1 and mask is not None:
-                mask = mask[:, :: unit.stride]
-        return self.fc(x.mean(dim=(1, 2)))
+        with contextlib.ExitStack() as layouts:
+            for unit in self.units:
+                x = (checkpointed(unit, x, mask=mask) if self.remat and train
+                     else unit(x, mask=mask))
+                mask = decimate(mask, unit.stride, frame_split())
+                layouts.enter_context(strided_layout(unit.stride))
+            return self.fc(frame_mean(x, frames=frame_split()))

@@ -58,6 +58,14 @@ Under expert parallelism (:mod:`stgx_torch.parallel.ep`) each rank holds
 ``4 / model`` of every student block's experts and the partial mixtures are
 summed over ``model`` (:func:`~stgx_torch.parallel.ep.expert_sum`).
 
+Under sequence parallelism both models' shifts run on each rank's
+extended block, as Shift-GCN's do; the skips' pooled pairs that straddle
+two blocks are completed from the next one
+(:func:`~stgx_torch.parallel.halo.sp_avg_pool`), the gates' and the
+heads' window means add every rank's frames, the length check reads the
+whole window, and each rank's distillation loss sums its frames (its share
+of the whole).
+
 Under bf16 compute the gate's softmax and the expert mixture are formed in
 fp32 and the mixed weight is cast to the activations' type; the margins are
 formed in fp32 and cast to the tap's type, and the distillation loss is
@@ -66,6 +74,7 @@ summed in fp32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Sequence
 
@@ -83,9 +92,16 @@ from stgx_torch.models.shiftgcn import (
     tp_partial,
 )
 from stgx_torch.models.stgcn import Dense, make_norm, torch_bias_init, torch_conv_init
-from stgx_torch.ops.shift import spatial_shift, spatial_shift_index, temporal_shift
+from stgx_torch.ops.shift import spatial_shift, spatial_shift_index
 from stgx_torch.parallel.ep import expert_sum
-from stgx_torch.parallel.mesh import Split
+from stgx_torch.parallel.halo import (
+    decimate,
+    frame_mean,
+    frame_split,
+    sp_avg_pool,
+    sp_temporal_shift,
+)
+from stgx_torch.parallel.mesh import Split, strided_layout
 from stgx_torch.parallel.tp import enter, gather_channels
 
 __all__ = [
@@ -143,7 +159,8 @@ class DySEGate(nn.Module):
         self.dense_1 = Dense(hidden, EXPERTS, generator, kernel_std=(1.0 / hidden) ** 0.5)
 
     def forward(self, x, epoch):
-        z = self.dense_1(torch.relu(self.dense_0(x.mean(dim=(1, 2)))))
+        # the SE pool over every seq rank's frames
+        z = self.dense_1(torch.relu(self.dense_0(frame_mean(x, frames=frame_split()))))
         z = z.to(_acc(z))
         return torch.softmax(z / _tau(epoch, z), dim=-1)
 
@@ -245,14 +262,15 @@ class StudentTemporalShift(nn.Module):
         """Under tensor parallelism ``x`` and the output are this rank's
         channel block; the gate and the mixture read it gathered whole."""
         c = self.channels
-        x = temporal_shift(self.in_norm(x, mask=mask), c.part(self.shift_in, -1))
+        frames = frame_split()
+        x = sp_temporal_shift(self.in_norm(x, mask=mask), c.part(self.shift_in, -1),
+                              frames=frames)
         x = enter(gather_channels(x, c), c)
         g = self.gate(x, epoch)
         x = torch.relu(_experts(x, self.temporal_kernel, self.temporal_bias, g,
                                 self.experts, c))
-        x = temporal_shift(x, c.part(self.shift_out, -1), stride=self.stride)
-        smask = mask[:, :: self.stride] if mask is not None else None
-        return self.out_norm(x, mask=smask)
+        x = sp_temporal_shift(x, c.part(self.shift_out, -1), self.stride, frames)
+        return self.out_norm(x, mask=decimate(mask, self.stride, frames))
 
 
 class TeacherTemporalShift(TemporalShiftBlock):
@@ -302,14 +320,8 @@ class _StudentUnit(nn.Module):
             return gather_channels(y, c)
         if self.identity:
             return gather_channels(y + c.part(x, -1), c)
-        return gather_channels(y + (x[:, :: self.stride] @ self.res_kernel + self.res_bias), c)
-
-
-def _avg_pool_time(x, k: int = 2):
-    """Mean of each k frames, the last ``L mod k`` frames dropped."""
-    n, l, v, c = x.shape
-    lt = (l // k) * k
-    return x[:, :lt].reshape(n, lt // k, k, v, c).mean(dim=2)
+        res = decimate(x, self.stride, frame_split()) @ self.res_kernel + self.res_bias
+        return gather_channels(y + res, c)
 
 
 def _check_lengths(model, window: int) -> None:
@@ -351,23 +363,27 @@ class _Backbone(nn.Module):
                         kernel_std=(2.0 / num_classes) ** 0.5)
 
     def _run(self, x, mask, train, extract_features, unit_args=()):
-        _check_lengths(self, x.shape[1])
+        frames = frame_split()  # under seq: this rank's block of the window
+        _check_lengths(self, x.shape[1] if frames is None else frames.edges(x.shape[1])[-1])
         x0 = self.data_bn(x, mask=mask)
-        pooled = [x0, _avg_pool_time(x0)]
-        pooled.append(_avg_pool_time(pooled[1]))
+        # the skips at the time scales 1, 1/2, 1/4, each split as the units' features
+        pooled = [x0, sp_avg_pool(x0, 2, frames)]
+        pooled.append(sp_avg_pool(pooled[1], 2, None if frames is None else frames.strided(2)))
         feats, h = [], x0
-        for i, unit in enumerate(self.units):
-            if self.skip_scale[i] is not None:
-                h = torch.cat([h, pooled[self.skip_scale[i]][:, : h.shape[1]]], dim=-1)
-            # fault 3: the units see no mask
-            if self.remat and train:
-                h = checkpointed(unit, h, *unit_args)
-            else:
-                h = unit(h, *unit_args)
-            if extract_features and i in self.feature_taps:
-                feats.append(h)
-            h = torch.relu(h)
-        out = self.fc(h.mean(dim=(1, 2)))
+        with contextlib.ExitStack() as layouts:
+            for i, unit in enumerate(self.units):
+                if self.skip_scale[i] is not None:
+                    h = torch.cat([h, pooled[self.skip_scale[i]][:, : h.shape[1]]], dim=-1)
+                # fault 3: the units see no mask
+                if self.remat and train:
+                    h = checkpointed(unit, h, *unit_args)
+                else:
+                    h = unit(h, *unit_args)
+                layouts.enter_context(strided_layout(unit.stride))
+                if extract_features and i in self.feature_taps:
+                    feats.append(h)
+                h = torch.relu(h)
+            out = self.fc(frame_mean(h, frames=frame_split()))
         return (feats, out) if extract_features else out
 
 

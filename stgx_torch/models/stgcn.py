@@ -30,11 +30,19 @@ it, and the blocks are gathered as it leaves. ``fcn_in`` is sharded too;
 ``norm_in`` and the head stay whole (``TP_WHOLE``), and the edge
 importance's gradient is partial (``TP_PARTIAL``).
 
+Under sequence parallelism (the mesh's ``seq`` axis splits each window's
+frames, :mod:`stgx_torch.parallel.halo`) a layer takes the temporal conv's
+4 frames a side as halos, its strided residual and decimated mask at the
+block's global phase, and runs its norm, dropout and the next layer on the
+strided block (:func:`~stgx_torch.parallel.mesh.strided_layout`); the
+head's (L, V) mean adds every rank's frames.
+
 BatchNorm keeps no running stats (the framework-wide BN adaptation).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Sequence
 
 import torch
@@ -47,7 +55,8 @@ from stgx_torch.ops.graph_conv import partitioned_gcn
 from stgx_torch.ops.norms import BatchNorm, LayerNorm
 from stgx_torch.ops.rt_fused import rt_fused_gcn_acc
 from stgx_torch.ops.temporal import temporal_conv
-from stgx_torch.parallel.mesh import Split, current_shards
+from stgx_torch.parallel.halo import decimate, frame_mean, frame_split, sp_temporal_conv
+from stgx_torch.parallel.mesh import Split, current_shards, strided_layout
 from stgx_torch.parallel.tp import enter, gather_channels
 
 __all__ = [
@@ -230,7 +239,8 @@ class StgcnLayer(nn.Module):
                 generator: torch.Generator | None = None):
         """``train`` turns dropout on; its keep-mask is drawn from
         ``generator`` (on x's device), never from the global RNG."""
-        smask = mask[:, :: self.stride] if mask is not None else None
+        frames = frame_split()
+        smask = decimate(mask, self.stride, frames)
         c = self.channels
         x = enter(x, c)
         if not self.residual:
@@ -238,15 +248,23 @@ class StgcnLayer(nn.Module):
         elif self.identity:
             res = c.part(x, -1)
         else:
-            res = self.res_norm(x[:, :: self.stride] @ self.res_kernel + self.res_bias,
-                                mask=smask)
+            res = self.res_norm(decimate(x, self.stride, frames) @ self.res_kernel
+                                + self.res_bias, mask=smask)
         x = torch.relu(self.norm(self.gcn(x, A), mask=mask))
-        # the temporal conv contracts over every channel
-        x = temporal_conv(enter(gather_channels(x, c), c), self.tcn_kernel, self.tcn_bias,
-                          stride=self.stride, dilation=self.dilation)
+
+        def whole(t):  # the temporal conv contracts over every channel
+            return enter(gather_channels(t, c), c)
+
+        if frames is None:
+            x = temporal_conv(whole(x), self.tcn_kernel, self.tcn_bias,
+                              stride=self.stride, dilation=self.dilation)
+        else:
+            x = sp_temporal_conv(x, self.tcn_kernel, self.tcn_bias, stride=self.stride,
+                                 dilation=self.dilation, frames=frames, extended=whole)
         x = self.tcn_norm(x, mask=smask)
         if train and self.dropout > 0:
-            x = dropout(x, self.dropout, generator, c)
+            with strided_layout(self.stride):  # the mask of the strided frames
+                x = dropout(x, self.dropout, generator, c)
         return gather_channels(torch.relu(x + res), c)
 
 
@@ -327,12 +345,14 @@ class Stgcn(nn.Module):
         decimated after each strided layer; ``train`` turns dropout on, with
         its masks drawn from ``generator``."""
         x = self.fcn_in(self.norm_in(x, mask=mask))
-        for i, layer in enumerate(self.layers):
-            if self.remat and train:
-                x = checkpointed(layer, x, self.layer_A(i), mask=mask, train=True,
-                                 generator=generator)
-            else:
-                x = layer(x, self.layer_A(i), mask=mask, train=train, generator=generator)
-            if mask is not None:
-                mask = mask[:, :: self.stride[i]]
-        return self.fcn_out(x.mean(dim=(1, 2)))  # global (L, V) pool
+        with contextlib.ExitStack() as layouts:
+            for i, layer in enumerate(self.layers):
+                if self.remat and train:
+                    x = checkpointed(layer, x, self.layer_A(i), mask=mask, train=True,
+                                     generator=generator)
+                else:
+                    x = layer(x, self.layer_A(i), mask=mask, train=train, generator=generator)
+                mask = decimate(mask, self.stride[i], frame_split())
+                layouts.enter_context(strided_layout(self.stride[i]))
+            # global (L, V) pool, over every seq rank's frames
+            return self.fcn_out(frame_mean(x, frames=frame_split()))

@@ -17,8 +17,10 @@ Under a mesh (a step run in :func:`stgx_torch.parallel.mesh.use_shards`
 with its batch in several parts) the BatchNorm statistics are those of the
 whole batch, as GSPMD computes them for the JAX package: the masked sums of
 x and x² and the counts of every part are added over the ranks that hold
-the parts, the sums by a differentiable all-reduce. LayerNorm is per frame
-and needs nothing there.
+the parts, the sums by a differentiable all-reduce. Each part's count is
+its own (masked frames and joints), never assumed equal: the frame blocks
+of a window under ``seq`` differ in length after a stride (13/12 of a
+25-frame block). LayerNorm is per frame and needs nothing there.
 
 Under tensor parallelism (:mod:`stgx_torch.parallel.tp`) a norm sees one
 block of the channels. BatchNorm's statistics are per channel and stay on

@@ -54,17 +54,22 @@ and ``window_ms`` (MS-GCN).
   process a device, every process running the same epoch on its block of
   each step's batch, as the JAX ``Trainer`` shards it (``_shard``): trials
   (or a chunk's windows) split over ``data`` only where their count
-  divides, else every data rank computes the whole step; frames split over
-  ``seq`` only where the bucket length divides (the ``frame`` kind; ``seq``
-  for the other kinds is not ported). The step runs under
+  divides, else every data rank computes the whole step; frames (the
+  frame kinds' trial frames, the window kinds' W frames of every window)
+  split over ``seq`` only where their count divides, else the ``seq`` ranks
+  hold replicas. The step runs under
   :func:`~stgx_torch.parallel.mesh.use_shards`: synced BatchNorm
-  statistics, the halos of the frame-axis ops, dropout masks sliced from
+  statistics, the halos of the frame-axis ops and the sums over the frames
+  (:mod:`stgx_torch.parallel.halo`; the blocks' bounds follow every
+  strided layer, so they may differ in length), dropout masks sliced from
   the one-process draw, and each rank's share of the loss
-  (:mod:`stgx_torch.utils.loss`). Each step's gradients are summed over the
-  ranks that hold different parts (never over replicas: the divisors are
-  already the whole batch's, so a mean would be wrong) before they join
-  the accumulated ``.grad``; the reported losses, top-k counts and the
-  evaluation's per-frame top-1 are summed or gathered likewise, so every
+  (:mod:`stgx_torch.utils.loss`). A window chunk's logits are whole on
+  every ``seq`` rank: each of these replicas carries ``1/seq`` of their
+  loss. Each step's gradients are summed (not averaged: the divisors are
+  already the whole batch's) over the ranks that hold different parts
+  before they join the accumulated ``.grad``; the reported
+  losses, top-k counts and the evaluation's per-frame top-1 are summed or
+  gathered over the ranks that hold different parts of the loss, so every
   rank logs the same numbers (durations: the slowest rank's). Each rank
   feeds the metrics a contiguous block of the trials, which their
   ``reduce`` gathers across processes in trial order. Rank 0 alone writes
@@ -85,21 +90,18 @@ and ``window_ms`` (MS-GCN).
   too; the rest are complete on every ``model`` rank. Checkpoints hold the
   whole state (:mod:`stgx_torch.utils.checkpoint`).
 * The ``window_ms`` kind (MS-GCN) splits a chunk's windows over ``data``
-  for the generator stage; its refinement stages convolve across the
-  windows, so each rank gathers the generator's scores whole and runs them
-  on the whole chunk (:class:`stgx_torch.models.msgcn.MsGcn`; the JAX
-  ``Trainer`` splits them and GSPMD exchanges the halos).
+  for the generator stage and the refinement alike; the refinement's
+  dilated convs take their halos from the other data ranks
+  (:class:`stgx_torch.models.msgcn.MsGcn`).
 
-Not ported yet (ROADMAP.md, queue 1 item 10): ``seq`` for the window and
-multi-stage kinds outside the pipeline (10.3) and ``remat`` under a mesh
-(10.4).
+Not ported yet (ROADMAP.md, queue 1 item 10.4): ``remat`` under a mesh.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
@@ -108,6 +110,7 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from stgx_torch.parallel.mesh import (
+    Shards,
     Split,
     gather_blocks,
     reduce_scalars,
@@ -206,12 +209,12 @@ class Trainer:
             raise NotImplementedError(
                 f"{what} is not ported to stgx_torch yet; see ROADMAP.md, queue 1 item {item}")
 
-        if self.mesh.shape["seq"] > 1 and self.kind != "frame" and not self.pipeline:
-            refuse(f"sequence parallelism (mesh seq > 1) for the {self.kind!r} kind", "10.3")
         tp = self.mesh.shape["model"] > 1 and not self.pipeline
         if self.mesh.size > 1:
-            if getattr(self.model, "remat", False):
-                refuse("arch.remat under a mesh past one device", "10.4")
+            # MS-TCN and MS-GCN keep the flag on their stages
+            if any(getattr(m, "remat", False) for m in self.model.modules()):
+                refuse(f"arch.remat under a mesh past one device (the {self.kind!r} kind on "
+                       f"the mesh {self.mesh.shape})", "10.4")
             from stgx_torch.ops.rt_fused import rt_fused_enabled, set_rt_fused
 
             if rt_fused_enabled():
@@ -238,28 +241,43 @@ class Trainer:
 
     def layout(self, x):
         """The :class:`~stgx_torch.parallel.mesh.Shards` of a step's batch
-        ``x`` (``(N, L, V, C)`` trials, or a chunk's windows), or None
-        without a mesh: axis 0 over ``data`` where N divides, frames over
-        ``seq`` where L divides (frame kinds)."""
+        ``x`` (``(N, L, V, C)`` trials, or a chunk's ``(B, W, V, C)``
+        windows), or None without a mesh, as the JAX ``Trainer``'s
+        ``_shard`` lays it out: axis 0 over ``data`` where N (B) divides,
+        axis 1, the frames (a window's W frames), over ``seq`` where L (W)
+        divides, in equal blocks whose bounds the strided layers follow."""
         if self.mesh is None:
             return None
         # under the pipeline the seq ranks hold replicas (the JAX pipeline's input spec)
-        split_l = (self.kind in _FRAME_KINDS and not self.pipeline
-                   and x.shape[1] % self.mesh.shape["seq"] == 0)
-        return self.mesh.shards(x.shape[0] % self.mesh.shape["data"] == 0, split_l)
+        split_l = not self.pipeline and x.shape[1] % self.mesh.shape["seq"] == 0
+        return self.mesh.shards(x.shape[0] % self.mesh.shape["data"] == 0, split_l,
+                                x.shape[1])
 
-    def _local(self, shards, *ts):
-        """This rank's block of each global ``t`` (None stays None): axes 0
-        and 1 of the frame kinds' trials, axis 0 of the window kinds'."""
+    def _local(self, shards, x, y, mask):
+        """This rank's block of the global ``x``, ``y`` and ``mask`` (None
+        stays None): axes 0 and 1 of each for the frame kinds; of the window
+        kinds' ``x`` axes 0 and 1, of their per-window labels and mask axis 0."""
         axes = 2 if self.kind in _FRAME_KINDS else 1
-        return tuple(None if t is None else shards.local(t, axes) for t in ts)
+        return (shards.local(x), shards.local(y, axes),
+                None if mask is None else shards.local(mask, axes))
 
     def _loss_layout(self, shards):
         """The layout of the loss's ``(N, L)`` series: the batch's for the
-        frame kinds; for the window kinds, a chunk's windows are its frames."""
+        frame kinds; for the window kinds, a chunk's windows are its frames,
+        split over ``data`` only (the ``seq`` ranks hold replicas of them,
+        :meth:`_replicas`)."""
         if shards is None or self.kind in _FRAME_KINDS:
             return shards
-        return replace(shards, n=Split(), l=shards.n)
+        n = shards.n
+        return Shards(Split(), n, n.group, n.size, shards.device)
+
+    def _replicas(self, shards) -> int:
+        """How many ranks hold each of the loss's parts: a window chunk's
+        ``seq`` ranks, whose logits are each window's whole (1 for the
+        frame kinds, whose frames are the loss's)."""
+        if shards is None or self.kind in _FRAME_KINDS:
+            return 1
+        return shards.l.size
 
     def _sum(self, shards, *values) -> list:
         """Per-part numbers summed over the ranks that hold the parts."""
@@ -430,22 +448,27 @@ class Trainer:
             x, y, mask = self._local(shards, x, y, mask)
             if not isinstance(divisors, (int, float)):
                 divisors = [float(d) for d in shards.n.part(torch.tensor(divisors), 0)]
-        loss_kw = {} if shards is None else {"shards": self._loss_layout(shards)}
+        lshards = self._loss_layout(shards)
+        loss_kw = {} if shards is None else {"shards": lshards}
+        # each of r replicas of the logits carries 1/r of their loss, so that
+        # the gradients summed over every part count it once (an auxiliary
+        # loss is each part's own share already)
+        replicas = self._replicas(shards)
         with use_shards(shards):
             out, aux = self._outputs(x, mask, True, generator, epoch)
             y, mask = self._series(y, mask)
             if isinstance(divisors, (int, float)):
                 ce, mse = self.loss(out, y, mask, **loss_kw)
-                scaled = (ce + mse + aux) / divisors
+                scaled = ((ce + mse) / replicas + aux) / divisors
             else:
                 div = torch.tensor(divisors, dtype=torch.float32, device=out.device)
                 ce_v, mse_v = self.loss(out, y, mask, per_sample=True, **loss_kw)
-                scaled = ((ce_v + mse_v) / div).sum()
+                scaled = ((ce_v + mse_v) / div).sum() / replicas
                 ce, mse = ce_v.sum(), mse_v.sum()
             self._backward(scaled, shards)
         _, _, c1, c5, tot = self.statistics(out.detach(), y, mask)
         if shards is not None:
-            return tuple(self._sum(shards, ce, mse, c1, c5, tot))
+            return tuple(self._sum(lshards, ce, mse, c1, c5, tot))
         return ce.detach(), mse.detach(), c1, c5, tot
 
     def _step(self):
@@ -587,7 +610,7 @@ class Trainer:
         if per_sample:  # every trial's shares, summed over its frames' ranks
             ce, mse = (gather_blocks(v[:, None], shards).sum(dim=1) for v in (ce, mse))
             return (ce, mse, top1, *self._sum(shards, c1, c5, tot))
-        ce, mse, c1, c5, tot = self._sum(shards, ce, mse, c1, c5, tot)
+        ce, mse, c1, c5, tot = self._sum(lshards, ce, mse, c1, c5, tot)
         return ce, mse, top1, c1, c5, tot
 
     @torch.no_grad()

@@ -18,9 +18,12 @@ itself:
   refinement stages of the pipelined MS-TCN
   (:mod:`stgx_torch.parallel.pipeline`).
 * A step whose batch is split runs under :func:`use_shards` with the
-  :class:`Shards` of its layout: which of its axes 0 (trials) and 1
-  (frames) are split, over which group, and the group of every rank that
-  holds a different part. The ops that reduce over those axes read it
+  :class:`Shards` of its layout: which of its axes 0 (trials or windows)
+  and 1 (frames: a trial's, or a window's W) are split, over which group,
+  and the group of every rank that holds a different part. The frame
+  split carries its blocks' global bounds, which a strided layer maps
+  (:meth:`Split.strided`, :func:`strided_layout`), so that blocks may
+  differ in length. The ops that reduce over those axes read it
   (:func:`current_shards`): the masked batch statistics
   (:func:`stgx_torch.ops.norms.batch_norm`), the frame-axis ops of the
   models under ``seq`` (:mod:`stgx_torch.parallel.halo`), dropout (the
@@ -45,7 +48,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import torch
@@ -57,10 +60,11 @@ __all__ = [
     "Mesh",
     "Split",
     "Shards",
+    "equal_split",
     "shard_batch",
     "replicate",
     "use_shards",
-    "gather_parts",
+    "strided_layout",
     "current_shards",
     "sum_parts",
     "reduce_scalars",
@@ -102,21 +106,66 @@ def init_distributed(device=None, init_method: str | None = None,
 @dataclass(frozen=True)
 class Split:
     """One axis of a step's batch: split in ``size`` parts over ``group``,
-    this rank's part ``index``; or whole (size 1, no group)."""
+    this rank's part ``index``; or whole (size 1, no group).
+
+    ``bounds``, where set, are the global edges of every part along the
+    axis (``size + 1`` numbers, part ``i`` the frames ``[bounds[i],
+    bounds[i + 1])``), so that parts may differ in length: a frame split
+    after a stride-``s`` layer (:meth:`strided`). None: equal parts."""
 
     size: int = 1
     index: int = 0
     group: Any = None
+    bounds: tuple | None = None
+
+    def edges(self, local: int) -> tuple:
+        """The parts' global edges: ``bounds``, or equal parts of ``local``."""
+        if self.bounds is not None:
+            return self.bounds
+        return tuple(i * local for i in range(self.size + 1))
+
+    @property
+    def start(self) -> int:
+        """This part's first global frame (``bounds`` must be set)."""
+        return self.bounds[self.index]
+
+    @property
+    def stop(self) -> int:
+        return self.bounds[self.index + 1]
+
+    @property
+    def length(self) -> int:
+        """The global length of the axis (``bounds`` must be set)."""
+        return self.bounds[-1]
+
+    def strided(self, stride: int) -> "Split":
+        """The split of a stride-``stride`` layer's output: part ``[a, b)``
+        keeps the outputs ``[⌈a/s⌉, ⌈b/s⌉)`` of the ``⌈L/s⌉`` (an output
+        belongs to the rank of the frame its window is centred on, as the
+        JAX package's ``ceil(L/s)`` outputs fall to the ranks)."""
+        if stride == 1 or self.size == 1:
+            return self
+        return replace(self, bounds=tuple(-(-e // stride) for e in self.bounds))
 
     def part(self, t: torch.Tensor, axis: int) -> torch.Tensor:
         """This rank's part of ``t`` along ``axis``."""
         if self.size == 1:
             return t
         n = t.shape[axis]
+        if self.bounds is not None:
+            if n != self.length:
+                raise ValueError(f"axis {axis} of {n} is not the split's {self.length}")
+            return t.narrow(axis, self.start, self.stop - self.start)
         if n % self.size:
             raise ValueError(f"axis {axis} of {n} does not split in {self.size} parts")
         step = n // self.size
         return t.narrow(axis, self.index * step, step)
+
+
+def equal_split(split: Split, length: int) -> Split:
+    """``split`` with the bounds of ``length`` frames in equal parts."""
+    step = length // split.size
+    return replace(split, bounds=tuple(i * step for i in range(split.size + 1)))
 
 
 @dataclass(frozen=True)
@@ -125,7 +174,8 @@ class Shards:
     windows) split as ``n``, axis 1 (frames) as ``l``; ``group`` holds every
     rank with a different part (``parts`` of them; None when nothing is
     split), over which gradients and statistics are summed. ``device`` is
-    where the collectives' scalars live."""
+    where the collectives' scalars live. The frame split may carry its
+    parts' bounds, which :meth:`strided` follows through a strided layer."""
 
     n: Split
     l: Split
@@ -139,11 +189,20 @@ class Shards:
         t = self.n.part(t, 0)
         return self.l.part(t, 1) if axes > 1 else t
 
+    def strided(self, stride: int) -> "Shards":
+        """The layout after a stride-``stride`` layer (:meth:`Split.strided`)."""
+        return replace(self, l=self.l.strided(stride))
+
+    def _frames(self, local: int) -> tuple:
+        """``(start, stop, global length)`` of this rank's frames."""
+        edges = self.l.edges(local)
+        return edges[self.l.index], edges[self.l.index + 1], edges[-1]
+
     def global_shape(self, shape) -> tuple:
         shape = list(shape)
         shape[0] *= self.n.size
         if len(shape) > 1:
-            shape[1] *= self.l.size
+            shape[1] = self._frames(shape[1])[2]
         return tuple(shape)
 
     def block(self, shape) -> tuple:
@@ -151,7 +210,7 @@ class Shards:
         ``shape``."""
         sl = [slice(self.n.index * shape[0], (self.n.index + 1) * shape[0])]
         if len(shape) > 1:
-            sl.append(slice(self.l.index * shape[1], (self.l.index + 1) * shape[1]))
+            sl.append(slice(*self._frames(shape[1])[:2]))
         return tuple(sl)
 
 
@@ -185,12 +244,15 @@ class Mesh:
         return Split(self.shape[axis], self.coordinate[AXES.index(axis)],
                      self.device_mesh.get_group(axis))
 
-    def shards(self, split_n: bool, split_l: bool) -> Shards:
+    def shards(self, split_n: bool, split_l: bool, length: int | None = None) -> Shards:
         """The layout of a batch with axis 0 split over ``data`` if
-        ``split_n`` and axis 1 over ``seq`` if ``split_l``; its parts are
-        summed over the ranks of this rank's ``model`` position."""
+        ``split_n`` and axis 1 over ``seq`` if ``split_l`` (its ``length``
+        frames, where given, in equal parts with their bounds); its parts
+        are summed over the ranks of this rank's ``model`` position."""
         n = self.split("data") if split_n else Split()
         l = self.split("seq") if split_l else Split()
+        if length is not None and l.size > 1:
+            l = equal_split(l, length)
         if split_n and split_l:
             group = dist.group.WORLD if self.parts_group is None else self.parts_group
         elif split_n or split_l:
@@ -237,7 +299,8 @@ def make_mesh(data: int | None = None, seq: int = 1, model: int = 1, device=None
 def shard_batch(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """This process's block of a ``(N, L, ...)`` batch: N over ``data``, L
     over ``seq`` (each must divide)."""
-    return mesh.shards(True, x.dim() > 1 and mesh.shape["seq"] > 1).local(x)
+    split_l = x.dim() > 1 and mesh.shape["seq"] > 1
+    return mesh.shards(True, split_l, x.shape[1] if split_l else None).local(x)
 
 
 def replicate(mesh: Mesh, tensors) -> None:
@@ -270,6 +333,16 @@ def use_shards(shards: Shards | None):
         _SHARDS.reset(token)
 
 
+def strided_layout(stride: int):
+    """A context that runs the ops inside on the current layout after a
+    stride-``stride`` layer (:meth:`Shards.strided`): the frame split's
+    bounds follow the decimated frames. Nothing changes without a layout."""
+    shards = _SHARDS.get()
+    if shards is None or stride == 1:
+        return contextlib.nullcontext()
+    return use_shards(shards.strided(stride))
+
+
 def current_shards() -> Shards | None:
     """The layout of the step being run, if its batch has several parts."""
     return _SHARDS.get()
@@ -298,34 +371,6 @@ def sum_parts(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group``, differentiable (the backward sums the
     gradients over the group too: every part's loss reads the sum)."""
     return _SumParts.apply(t, group)
-
-
-class _GatherParts(torch.autograd.Function):
-    """All-gather of a :class:`Split`'s parts along ``axis``; its backward
-    sums the gradient over the group and keeps this rank's part."""
-
-    @staticmethod
-    def forward(ctx, t, split, axis):
-        ctx.split, ctx.axis = split, axis
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(split.size)]
-        dist.all_gather(parts, t, group=split.group)
-        return torch.cat(parts, dim=axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.split.group)
-        return ctx.split.part(g, ctx.axis).contiguous(), None, None
-
-
-def gather_parts(t: torch.Tensor, split: Split, axis: int) -> torch.Tensor:
-    """The whole tensor of every rank's part ``t`` of ``split`` along
-    ``axis``, on every rank; differentiable (the backward sums the gradients
-    over the group: each rank's loss reads every part)."""
-    if split.size == 1:
-        return t
-    return _GatherParts.apply(t, split, axis)
 
 
 def reduce_scalars(values, group, device, op=dist.ReduceOp.SUM) -> list:

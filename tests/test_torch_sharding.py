@@ -90,7 +90,9 @@ def _ranks(rank, world, params):
 
 
 def _window_kind_under_seq(mesh):
-    """The message a window-kind Trainer under ``seq > 1`` raises."""
+    """The message a window-kind Trainer under ``seq > 1`` raises: ``seq``
+    itself is ported (``tests/test_torch_sp_window.py``), ``remat`` under a
+    mesh is not (queue 1 item 10.4)."""
     from stgx_torch.graph import load_skeleton
     from stgx_torch.models import Stgcn
     from stgx_torch.parallel.loop import OptimizerConfig, Trainer
@@ -98,7 +100,7 @@ def _window_kind_under_seq(mesh):
 
     model = Stgcn(num_classes=CLASSES, in_feat=C_IN, graph=load_skeleton("imu_fogit_ABCD"),
                   kernel=3, in_ch=(8,), out_ch=(8,), stride=(1,), residual=(1,),
-                  dropout=(0.0,), device="cpu")
+                  dropout=(0.0,), remat=True, device="cpu")
     try:
         Trainer(model=model, kind="window", loss=LOSS["st-gcn"](np.ones(CLASSES, np.float32)),
                 opt=OptimizerConfig(), mesh=mesh)

@@ -57,6 +57,19 @@ SMALL = dict(num_classes=5, in_feat=3, in_ch=(3, 8, 8), out_ch=(8, 8, 16),
              stride=(1, 1, 2), residual=(0, 1, 1))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread, as ``tests/test_torch_shiftgcn_plus.py``
+    runs it: its epochs are many small ops, which beside the other test
+    workers' threads lose far more to thread hand-offs than they gain from
+    a parallel loop (the file took 538 s of a six-worker run, a test of 1 s
+    alone 160 s there)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _perturbed(params, seed):
     """Every leaf moved off its init value; the temporal shifts spread over
     ±5 frames, so the taps reach well past the neighbouring frames."""

@@ -31,9 +31,9 @@ counterpart of ``tests/test_tp.py``, case for case.
   each rank keeping the FIFOs of its channel block, and CoST-GCN's, each
   rank keeping its block of the residual FIFO and the whole channels of the
   main FIFO (one frame gathered a layer a step).
-* Refusals: ``seq`` outside the ``frame`` kind (MS-TCN outside the
-  pipeline, and the ``window`` kind) names ROADMAP.md's queue 1 item 10.3;
-  ``remat`` under a mesh item 10.4; a layer width the ``model`` axis does
+* Refusals: ``remat`` under a mesh names ROADMAP.md's queue 1 item 10.4,
+  under ``seq`` too (MS-TCN outside the pipeline, and the ``window`` kind,
+  whose ``seq`` itself is ported); a layer width the ``model`` axis does
   not divide raises ``ValueError``.
 * ``python -m stgx_torch.cli train`` of CoST-GCN (dropout 0.2) as 2
   processes with ``job.mesh.model = 2``: both log the same lines, rank 0
@@ -159,7 +159,7 @@ def _refusals_in(mesh):
     from stgx_torch.utils import LOSS
 
     def window_seq():
-        model = Stgcn(**_kwargs("rt-st-gcn", "BatchNorm"), device="cpu")
+        model = Stgcn(**_kwargs("rt-st-gcn", "BatchNorm"), remat=True, device="cpu")
         Trainer(model=model, kind="window", loss=LOSS["st-gcn"](np.ones(CLASSES, np.float32)),
                 opt=OptimizerConfig(), mesh=make_mesh(1, mesh.shape["model"], 1))
 
@@ -175,7 +175,8 @@ def _refusals_in(mesh):
 
     def ms_tcn_seq():
         model = MODELS["ms-tcn"](num_classes=CLASSES, in_feat=C_IN, stages=2, filters=(8, 8),
-                                 layers=(1, 1), kernel=(3, 3), dropout=(0.0, 0.0), device="cpu")
+                                 layers=(1, 1), kernel=(3, 3), dropout=(0.0, 0.0),
+                                 remat=True, device="cpu")
         Trainer(model=model, kind="frame_ms", loss=LOSS["ms-tcn"](np.ones(CLASSES, np.float32)),
                 opt=OptimizerConfig(), mesh=make_mesh(1, mesh.shape["model"], 1))
 
@@ -305,11 +306,11 @@ def test_tp_refusals_name_their_roadmap_item(tp_runs):
     messages = tp_runs("model2")[0]["refusals", "model2"]
     assert messages["window seq"].startswith("NotImplementedError") and \
         "'window' kind" in messages["window seq"] and \
-        "queue 1 item 10.3" in messages["window seq"], messages["window seq"]
+        "queue 1 item 10.4" in messages["window seq"], messages["window seq"]
     assert messages["width"].startswith("ValueError") and "does not split" in messages["width"]
     assert "remat" in messages["remat"] and "queue 1 item 10.4" in messages["remat"]
     assert "'frame_ms' kind" in messages["ms-tcn seq"] and \
-        "queue 1 item 10.3" in messages["ms-tcn seq"]
+        "queue 1 item 10.4" in messages["ms-tcn seq"]
 
 
 LEAF_FAMILIES = ("rt-st-gcn", "co-st-gcn", "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn",

@@ -29,6 +29,16 @@ layout (3.39e-4–3.50e-4), so the sharding adds nothing measurable; a
 missed sum over ``model`` would move a gradient by a share of itself, far
 above either.
 
+The wrapper under sequence parallelism (the mesh's ``seq`` axis) at
+``seq`` 2, ``seq`` 4 and ``data`` 2 × ``seq`` 2 shares these JAX
+references: its 4 windows of 16 frames split in blocks of 8, 4 and 2 at
+``seq`` 2 and of 4, 2 and 1 at ``seq`` 4, which the shifts' 8- and
+9-frame halos span many times over (the shifts on each rank's extended
+block, the pooled skips across block edges, the gates' window means summed
+over ``seq``, each rank's share of the distillation loss), held within the
+same bounds. W = 52, where the blocks come out uneven, is
+``tests/test_torch_sp_plus.py``'s (in float64).
+
 Each world size (2, 4) is one gloo session that runs all its cases,
 started before the JAX references are computed, which run beside it.
 """
@@ -40,12 +50,21 @@ import torch_tp_cases as T
 NAMES = ("shift-gcn++-teacher", "shift-gcn++")
 CASES = T.cases(NAMES)
 TOL = {("shift-gcn++", "BatchNorm"): dict(atol=5e-4, rtol=2e-3)}
+SP_FRAMES = {"shift-gcn++": (16,)}  # the TP cases' windows: the same JAX step
+SP_CASES = T.sp_cases(("shift-gcn++",), SP_FRAMES)
+
+
+def _ranks(rank, world, states, sp_states):
+    out = T.ranks(rank, world, T.LAYOUTS, states)
+    out.update(T.sp_ranks(rank, world, T.SP_LAYOUTS, sp_states))
+    return out
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     states = T.states(NAMES)
-    return T.sessions(T.ranks, tmp_path_factory, states, T.LAYOUTS, states)
+    sp_states = T.sp_states(("shift-gcn++",), SP_FRAMES)
+    return T.sessions(_ranks, tmp_path_factory, states, states, sp_states)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[f"{n}-{m}" for n, m in CASES])
@@ -55,3 +74,12 @@ def test_tp_step_matches_single_device(runs, layout, case):
     tol = TOL.get(case, dict(atol=2e-4, rtol=2e-3))
     for rank, out in enumerate(outs[T.world(layout)]):
         T.assert_step_matches(out[case, layout], refs[case], what=f"rank {rank}", **tol)
+
+
+@pytest.mark.parametrize("case", SP_CASES, ids=[f"{m}-W{f}" for _, m, f in SP_CASES])
+@pytest.mark.parametrize("layout", list(T.SP_LAYOUTS))
+def test_sp_step_matches_single_device(runs, layout, case):
+    refs, outs = runs
+    tol = TOL.get(case[:2], dict(atol=2e-4, rtol=2e-3))
+    for rank, out in enumerate(outs[T.sp_world(layout)]):
+        T.assert_step_matches(out[case, layout], refs[case[:2]], what=f"rank {rank}", **tol)

@@ -51,28 +51,36 @@ def cases(names):
     return [(name, norm) for name in names for norm in norms(name)]
 
 
-def kwargs(name, norm):
+def kwargs(name, norm, arch=None):
+    """The model's keyword arguments: :data:`ARCH`'s widths, or ``arch``'s."""
     from stgx_torch.graph import load_skeleton
 
-    kw = dict(num_classes=CLASSES, in_feat=C_IN, **ARCH[name])
+    kw = dict(num_classes=CLASSES, in_feat=C_IN, **(ARCH if arch is None else arch)[name])
     if name != "ms-tcn":
         kw.update(graph=load_skeleton(SKELETON), normalization=norm)
     return kw
 
 
-def batch(name):
+def window(name, frames=None):
+    """The frames of a window (of a trial for MS-TCN): ``frames``, or
+    :data:`WINDOW`'s."""
+    return WINDOW.get(name, 16) if frames is None else frames
+
+
+def batch(name, frames=None):
     """``(x, y, mask)`` in numpy: 4 windows (one masked out whole) for the
-    window kinds, 8 for MS-GCN's, 2 trials of 16 frames (one padded by 4)
-    for MS-TCN's."""
+    window kinds, 8 for MS-GCN's, 2 trials of 16 frames (one padded by a
+    quarter) for MS-TCN's; ``frames`` a window (a trial), if given."""
     rng = np.random.default_rng(0)
+    length = window(name, frames)
     if KIND[name] == "frame_ms":
-        x = rng.normal(size=(2, 16, V, C_IN)).astype(np.float32)
-        y = rng.integers(0, CLASSES, size=(2, 16)).astype(np.int64)
-        mask = np.ones((2, 16), np.float32)
-        mask[1, 12:] = 0.0
+        x = rng.normal(size=(2, length, V, C_IN)).astype(np.float32)
+        y = rng.integers(0, CLASSES, size=(2, length)).astype(np.int64)
+        mask = np.ones((2, length), np.float32)
+        mask[1, length - length // 4:] = 0.0
         return x, y, mask
     n = 8 if name == "ms-gcn" else 4
-    x = rng.normal(size=(n, WINDOW.get(name, 16), V, C_IN)).astype(np.float32)
+    x = rng.normal(size=(n, length, V, C_IN)).astype(np.float32)
     y = rng.integers(0, CLASSES, size=(n,)).astype(np.int64)
     mask = np.ones((n,), np.float32)
     mask[-1] = 0.0
@@ -105,12 +113,12 @@ def perturb(model, seed=3):
                 p.add_(torch.tensor(0.1 * rng.normal(size=p.shape), dtype=p.dtype))
 
 
-def build(name, norm, state=None):
+def build(name, norm, state=None, arch=None):
     """The port model on the CPU: from seed 0 and :func:`perturb`, or with
-    ``state`` (``{name: numpy array}``) loaded."""
+    ``state`` (``{name: numpy array}``) loaded; ``arch`` as :func:`kwargs`."""
     from stgx_torch.models import MODELS
 
-    model = MODELS[name](**kwargs(name, norm), device="cpu",
+    model = MODELS[name](**kwargs(name, norm, arch), device="cpu",
                          generator=torch.Generator().manual_seed(0))
     if state is None:
         perturb(model)
@@ -123,19 +131,22 @@ def state_of(model):
     return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
-def port_step(name, norm, state, mesh):
+def port_step(name, norm, state, mesh, arch=None, frames=None, dtype=torch.float32):
     """Loss (ce + mse) and every gradient, gathered whole, of one port
-    ``grad_step`` under ``mesh`` (None: one process)."""
+    ``grad_step`` under ``mesh`` (None: one process); ``arch`` and
+    ``frames`` as :func:`kwargs` and :func:`batch`; the model and the
+    batch in ``dtype``."""
     from stgx_torch.parallel.loop import MODEL_EPOCH_ARG, OptimizerConfig, Trainer
     from stgx_torch.parallel.tp import gather_state
     from stgx_torch.utils import LOSS
 
-    model = build(name, norm, state)
+    model = build(name, norm, state, arch).to(dtype)
     trainer = Trainer(model=model, kind=KIND[name], loss=LOSS[name](np.ones(CLASSES, np.float32)),
                       opt=OptimizerConfig(), mesh=mesh, pass_epoch=name in MODEL_EPOCH_ARG,
-                      receptive_field=WINDOW.get(name, 16))
-    x, y, mask = (torch.tensor(a) for a in batch(name))
-    ce, mse, *_ = trainer.grad_step(x, y, mask, DIVISOR, torch.Generator().manual_seed(5),
+                      receptive_field=window(name, frames))
+    x, y, mask = (torch.tensor(a) for a in batch(name, frames))
+    ce, mse, *_ = trainer.grad_step(x.to(dtype), y, mask, DIVISOR,
+                                    torch.Generator().manual_seed(5),
                                     EPOCH)
     grads = gather_state(model, {k: torch.zeros_like(p) if p.grad is None else p.grad
                                  for k, p in model.named_parameters()})
@@ -157,10 +168,10 @@ def ranks(rank, world, layouts, states):
     return out
 
 
-def jax_step(name, norm, model):
+def jax_step(name, norm, model, arch=None, frames=None):
     """The JAX ``Trainer``'s one-device step (``_grad_step``) on ``model``'s
     parameters and :func:`batch`: loss (ce + mse) and every gradient under
-    the port's names."""
+    the port's names; ``arch`` and ``frames`` as :func:`port_step`."""
     import jax
     import jax.numpy as jnp
 
@@ -171,11 +182,11 @@ def jax_step(name, norm, model):
     from stgx_torch.parallel.loop import MODEL_EPOCH_ARG
     from stgx_torch.weights import from_jax_params, to_jax_params
 
-    jt = JTrainer(model=J_MODELS[name](**kwargs(name, norm)), kind=KIND[name],
+    jt = JTrainer(model=J_MODELS[name](**kwargs(name, norm, arch)), kind=KIND[name],
                   loss=J_LOSS[name](np.ones(CLASSES, np.float32)), opt=JOptimizerConfig(),
-                  pass_epoch=name in MODEL_EPOCH_ARG, receptive_field=WINDOW.get(name, 16))
+                  pass_epoch=name in MODEL_EPOCH_ARG, receptive_field=window(name, frames))
     params = jax.tree.map(jnp.asarray, to_jax_params(model))
-    x, y, mask = (jnp.asarray(a) for a in batch(name))
+    x, y, mask = (jnp.asarray(a) for a in batch(name, frames))
     grads, ce, mse, *_ = jt._grad_step(x.shape)(params, x, y, mask, DIVISOR,
                                                 jax.random.PRNGKey(0), jnp.asarray(EPOCH))
     return float(ce) + float(mse), {k: v.numpy() for k, v in
@@ -220,3 +231,110 @@ def assert_step_matches(got, ref, atol=1e-5, rtol=0.0, what=""):
     assert set(grads) == set(ref[1])
     for k, g in grads.items():
         np.testing.assert_allclose(g, ref[1][k], atol=atol, rtol=rtol, err_msg=f"{what} {k}")
+
+
+# -- sequence parallelism (the mesh's ``seq`` axis) ---------------------------------
+
+SP_LAYOUTS = {"seq2": (1, 2, 1), "seq4": (1, 4, 1), "data2-seq2": (2, 2, 1)}
+SP_TP_LAYOUTS = {"seq2-model2": (1, 2, 2)}
+SP_TP_NAMES = ("st-gcn", "shift-gcn")  # the families held at seq 2 × model 2
+# widths whose frame blocks come out uneven after the strides and whose
+# halos reach past a block: Γ = 9 (4 frames a side) after two strides, the
+# refinements' dilations up to 8
+_ST9 = dict(kernel=9, in_ch=(8, 8, 8), out_ch=(8, 8, 16), stride=(1, 2, 2),
+            residual=(1, 1, 1), dropout=(0.0, 0.0, 0.0))
+SP_ARCH = {
+    "st-gcn": _ST9,
+    "aa-gcn": _ST9,
+    "ms-gcn": dict(_ST9, stages=1, filters=(8,), layers=(4,), refine_kernel=(3,),
+                   refine_dropout=(0.0,)),
+    "ms-tcn": dict(stages=2, filters=(8, 8), layers=(4, 4), kernel=(3, 3), dropout=(0.0, 0.0)),
+    # three units, as ST-GCN's layers (a fourth unit of 16 channels at strides
+    # 1, 2, 1, 2 left one BatchNorm pre-activation within fp32 rounding of its
+    # ReLU's kink: the one-process port put it at −7.2e-7, float64 at +1.6e-8,
+    # and its step moved 5.7e-3 from JAX's while the port in float64 was
+    # 6.7e-7 from it)
+    "shift-gcn": dict(in_ch=(C_IN, 8, 16), out_ch=(8, 16, 16), stride=(1, 2, 2),
+                      residual=(0, 1, 1)),
+    "shift-gcn++-teacher": ARCH["shift-gcn++-teacher"],
+    "shift-gcn++": ARCH["shift-gcn++"],
+}
+# the frames of a window (an MS-TCN trial) for each family. W = 50 splits at
+# seq 2 in blocks of 25, which the strides leave 13/12 and 7/6, and falls
+# back at seq 4 (50 % 4 ≠ 0) to replicas, as the JAX Trainer's _shard does.
+# W = 52 splits at seq 4 too, in blocks of 13 that the strides leave
+# 7/6/7/6 and 4/3/3/3 (Γ = 9's 4-frame halo reaches past a 3-frame block;
+# Shift-GCN++'s pooled pairs straddle the blocks, its shifts' 8 and 9-frame
+# halos span up to three). MS-TCN's 16 frames give blocks of 4 at seq 4, which
+# its dilation of 8 spans twice; MS-GCN's 8 windows give the refinement
+# blocks of 4 at data 2.
+SP_FRAMES = {"st-gcn": (50, 52), "aa-gcn": (50,), "shift-gcn": (50,), "ms-gcn": (50,),
+             "ms-tcn": (16,), "shift-gcn++-teacher": (52,), "shift-gcn++": (52,)}
+
+
+def sp_cases(names, frames=None):
+    """``(name, norm, frames)`` of every family of ``names``, its windows
+    those of ``frames`` (``{name or (name, norm): windows}``) or
+    :data:`SP_FRAMES`."""
+    frames = SP_FRAMES if frames is None else {**SP_FRAMES, **frames}
+    return [(name, norm, f) for name, norm in cases(names)
+            for f in frames.get((name, norm), frames[name])]
+
+
+def sp_states(names, frames=None):
+    """``{case: port state}`` of :func:`sp_cases`, from seed 0 and :func:`perturb`."""
+    return {case: state_of(build(*case[:2], arch=SP_ARCH)) for case in sp_cases(names, frames)}
+
+
+def sp_ranks(rank, world, layouts, states, dtype=torch.float32):
+    """Every case of ``states`` (``{(name, norm, frames): state}``) at every
+    layout of ``layouts`` that spans ``world`` ranks (a ``model`` axis for
+    :data:`SP_TP_NAMES` only), its step in ``dtype``."""
+    from stgx_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for layout, shape in layouts.items():
+        if math.prod(shape) != world:
+            continue
+        mesh = make_mesh(*shape)
+        for (name, norm, frames), state in states.items():
+            if shape[2] == 1 or name in SP_TP_NAMES:
+                out[(name, norm, frames), layout] = port_step(name, norm, state, mesh, SP_ARCH,
+                                                              frames, dtype)
+    return out
+
+
+def sp_start(tmp_path_factory, states, layouts, dtype=torch.float32):
+    """Start one gloo session a world size of ``layouts`` running
+    :func:`sp_ranks`; returns ``{world: wait for its ranks' results}``."""
+    from test_torch_spawn import start
+
+    worlds = sorted({math.prod(shape) for shape in layouts.values()})
+    return {w: start(sp_ranks, w, tmp_path_factory.mktemp("sp"), layouts, states, dtype,
+                     timeout=400) for w in worlds}
+
+
+def sp_references(states):
+    """The JAX ``Trainer``'s one-device step on each case of ``states``."""
+    return {case: jax_step(*case[:2], build(*case[:2], state, SP_ARCH), SP_ARCH, case[2])
+            for case, state in states.items()}
+
+
+def sp_sessions(tmp_path_factory, states, layouts):
+    """``(JAX references, {world: every rank's sp_ranks})`` of the cases of
+    ``states`` at ``layouts``: the gloo sessions started first, the
+    references computed while they run."""
+    pending = sp_start(tmp_path_factory, states, layouts)
+    refs = sp_references(states)
+    return refs, {w: results() for w, results in pending.items()}
+
+
+def sp_world(layout):
+    return math.prod({**SP_LAYOUTS, **SP_TP_LAYOUTS}[layout])
+
+
+def sp_params(names):
+    """``(case, layout)`` of every SP test of ``names``, and their ids."""
+    params = [(case, layout) for case in sp_cases(names)
+              for layout in (*SP_LAYOUTS, *(SP_TP_LAYOUTS if case[0] in SP_TP_NAMES else ()))]
+    return params, [f"{n}-{m}-W{f}-{layout}" for (n, m, f), layout in params]
