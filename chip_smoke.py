@@ -200,6 +200,22 @@ over two NCCL ranks against one rank. Every multi-rank step is held with
 every gradient within TOL_MULTI_RANK of the step's largest
 (``grads_held``).
 
+Then the ablation profiler (``stgx_torch.bench.ablate``, ``ablation_phase``):
+every variant the port runs, for RT-ST-GCN₉ (ABL_RT trials of frames) and
+ST-GCN (ABL_ST_WINDOWS windows of W = 50) at full width, fp32: one step with
+the counters at zero (finite loss and gradients; the launches that show
+each patch reached its op: no window_sum under ``no_acc``, no gcn_grads
+under ``fwd_only``, rt_fused / rt_fused_bwd and no gcn_core under
+``rt_fused``, no gcn_core under ``matmul_only`` and ``no_agg``, one more
+gcn_core a layer under ``remat`` and none more under ``remat_dots``, one
+more window_sum a layer under both), then
+its step time. Last, ``arch.remat`` under a mesh (``remat_mesh_phase``):
+one RT9 and one Shift-GCN remat epoch at NCCL world size 1 with a mesh
+against the same epoch without, bit for bit, and with two cards RT9's
+remat step at seq = 2 over two NCCL ranks against one rank; and the native
+``.npy`` loader on the synthetic trials those epochs read, bit for bit
+``np.load``'s float32.
+
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -455,6 +471,9 @@ TP_SG_TRIALS, TP_SG_LEN, TP_SG_WINDOWS = 4, (96, 160), 64
 # against graph-free streaming (cuBLAS may pick another algorithm under
 # capture)
 TOL_RESUME, TOL_GRAPH = 1e-5, 1e-5
+# the ablation phase's short steps: RT9's stacked trials x frames, ST-GCN's
+# windows; one counted step, then WARMUP / STEPS timed ones a variant
+ABL_RT, ABL_ST_WINDOWS, ABL_WARMUP, ABL_STEPS = (2, 256), 32, 1, 3
 
 
 class SmokeFailure(Exception):
@@ -4189,9 +4208,9 @@ def multi_rank_vs_one(data_dir, tag, step, axis):
             f"largest gradient ({worst[1]})")
 
 
-def _rt_step(mesh=None, device=None):
+def _rt_step(mesh=None, device=None, remat=False):
     """The gradients of one RT9 grad step on 2 x DIST_SEQ_FRAMES frames, on
-    ``device`` (the card if None)."""
+    ``device`` (the card if None), with ``arch.remat`` if ``remat``."""
     import numpy as np
     import torch
 
@@ -4200,7 +4219,8 @@ def _rt_step(mesh=None, device=None):
     from stgx_torch.parallel.tp import gather_state
     from stgx_torch.utils import LOSS
 
-    trainer = Trainer(model=build_model(load_cfg(CONFIG), NUM_CLASSES, device), kind="frame",
+    cfg = load_cfg(CONFIG, [f"arch.remat={str(remat).lower()}"])
+    trainer = Trainer(model=build_model(cfg, NUM_CLASSES, device), kind="frame",
                       loss=LOSS["rt-st-gcn"](np.ones(NUM_CLASSES, np.float32)),
                       opt=OptimizerConfig(), mesh=mesh)
     rng = np.random.default_rng(SEED + 15)
@@ -4212,6 +4232,11 @@ def _rt_step(mesh=None, device=None):
     trainer.grad_step(x, y, mask, 1.0, torch.Generator(device=dev).manual_seed(SEED))
     return gather_state(trainer.model, {k: p.grad.detach().clone()
                                         for k, p in trainer.model.named_parameters()})
+
+
+def _rt_remat_step(mesh=None, device=None):
+    """:func:`_rt_step` with ``arch.remat``."""
+    return _rt_step(mesh, device, remat=True)
 
 
 def distributed_phase(data_dir):
@@ -4912,6 +4937,186 @@ def tp_window_epoch_phase(data_dir):
     return parts
 
 
+def _ablation_expected(name, got, full, n, rt):
+    """Whether the launches ``got`` of variant ``name``'s step show its
+    patch on the path, against ``full``'s, ``n`` layers."""
+    same = {k: v for k, v in got.items() if k not in ("gcn_core", "gcn_grads", "window_sum",
+                                                       "rt_fused", "rt_fused_bwd")}
+    if any(same.values()):
+        return False
+    if name == "full":
+        return got["gcn_core"] == 2 * n and got["gcn_grads"] == n and \
+            got["window_sum"] == (2 * n if rt else 0)
+    if name == "no_acc":
+        return got["window_sum"] == 0 and got["gcn_core"] == full["gcn_core"]
+    if name == "fwd_only":
+        return got["gcn_grads"] == 0 and got["gcn_core"] == n
+    if name in ("rt_fused", "rt_fused_fwd"):
+        return got["gcn_core"] == 0 and got["rt_fused"] == n and \
+            got["rt_fused_bwd"] == (n if name == "rt_fused" else 0)
+    if name in ("matmul_only", "no_agg"):
+        return got["gcn_core"] == 0 and got["gcn_grads"] == 0
+    if name in ("remat", "remat_dots"):  # remat_dots keeps the products, not the window sums
+        return got["gcn_core"] == full["gcn_core"] + (n if name == "remat" else 0) and \
+            got["window_sum"] == full["window_sum"] + (n if rt else 0) and \
+            got["gcn_grads"] == full["gcn_grads"]
+    return got == full  # no_norm, no_tcn, no_mask, pad_v32, norm_native
+
+
+def ablation_phase():
+    """Every ported ablation variant of RT9 and ST-GCN at full width, fp32:
+    one counted step (finite loss and gradients, the launches of
+    _ablation_expected), then ABL_STEPS timed steps. Returns the counted
+    steps' launches."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.bench import ablate
+    from stgx_torch.bench import train_throughput as tt
+
+    parts = {}
+    for model, (trials, frames) in (("rt-st-gcn", ABL_RT), ("st-gcn", (ABL_ST_WINDOWS, 50))):
+        full, rows = None, {}
+        for name in ablate.ported(model):
+            trainer = ablate.variant_trainer(model, name, "float32")
+            n = len(trainer.model.layers)
+            rng = np.random.default_rng(SEED + 71)
+            v = trainer.model.num_joints
+            x = torch.tensor(rng.normal(size=(trials, frames, v, 3)), dtype=torch.float32,
+                             device="cuda")
+            series = (trials,) if trainer.kind == "window" else (trials, frames)
+            y = torch.tensor(rng.integers(0, NUM_CLASSES, size=series), device="cuda")
+            mask = None if name == "no_mask" else torch.ones(series, device="cuda")
+            fwd_only = name in ablate.FWD_ONLY
+            with ablate._patched(ablate.variant_patches(name)):
+                reset_counts()
+                if fwd_only:
+                    loss = sum(float(t) for t in tt.step_fn(trainer, x, y, mask, None, True)())
+                    grads_ok = all(p.grad is None for p in trainer.model.parameters())
+                else:
+                    ce, mse, *_ = trainer.grad_step(x, y, mask, 1.0)
+                    loss = float(ce) + float(mse)
+                    grads_ok = all(bool(torch.isfinite(p.grad).all())
+                                   for p in trainer.model.parameters() if p.grad is not None)
+                torch.cuda.synchronize()
+                got = counts()
+                trainer.optimizer.zero_grad(set_to_none=True)
+                rate, p50, _ = tt.measure_train_throughput(
+                    trainer, trials, frames, fwd_only, name != "no_mask",
+                    steps=ABL_STEPS, warmup=ABL_WARMUP)
+            full = got if name == "full" else full
+            parts[f"ablation {model} {name}"] = got
+            check(np.isfinite(loss) and grads_ok, f"ablation {model} {name}: loss {loss}, "
+                  f"gradients finite: {grads_ok}")
+            check(_ablation_expected(name, got, full, n, model == "rt-st-gcn"),
+                  f"ablation {model} {name}: launches {got}, full's {full}")
+            rows[name] = {"step_ms": p50, "per_s": rate,
+                          "launches": {k: c for k, c in got.items() if c}}
+            print(f"ablation {model} {name}, {trials} x {frames} frames fp32: step p50 "
+                  f"{p50:.3f} ms, launches {json.dumps(rows[name]['launches'])}", flush=True)
+            del trainer
+        print(json.dumps({"ablation": {"model": model, "trials": trials, "frames": frames,
+                                       "variants": rows}}), flush=True)
+    return parts
+
+
+def remat_mesh_phase(data_dir):
+    """NCCL at world size 1: one RT9 and one Shift-GCN epoch with
+    ``arch.remat`` under make_mesh(1, 1, 1) against the same remat epoch
+    without a mesh, parameters and Adam moments bit for bit, each with the
+    counters at zero; with two cards RT9's remat step at seq = 2 over two
+    NCCL ranks against one rank; then the native .npy loader on the
+    epochs' synthetic trials against np.load. Returns the epochs' launches."""
+    import glob
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from stgx_torch.config import build_model
+    from stgx_torch.data import SkeletonDirDataset
+    from stgx_torch.native import Prefetcher, load_npy_f32
+    from stgx_torch.parallel.loop import OptimizerConfig, Trainer
+    from stgx_torch.parallel.mesh import init_distributed, make_mesh
+    from stgx_torch.utils import LOSS
+
+    cases = {
+        "rt-st-gcn": (CONFIG, DIST_TRIALS, DIST_LENGTHS, dict(kind="frame", bucket=64,
+                                                              trial_batch=2)),
+        "shift-gcn": (SG_CONFIG, (TP_SG_TRIALS, 0), TP_SG_LEN,
+                      dict(kind="window", segment=SG_SEGMENT, bucket=SG_SEGMENT)),
+    }
+    store = os.path.join(data_dir, "store")
+    init_distributed(torch.device("cuda", torch.cuda.current_device()), f"file://{store}", 1, 0)
+    parts, line = {}, {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    try:
+        mesh = make_mesh(data=1, seq=1, model=1)
+        for i, (name, (config, trials, lengths, kw)) in enumerate(cases.items()):
+            sub = os.path.join(data_dir, name)
+            cli_data(sub, trials, lengths, SEED + 81 + i)
+            ds = SkeletonDirDataset(os.path.join(sub, "train", "features"),
+                                    os.path.join(sub, "train", "labels"))
+            cfg = load_cfg(config, ["arch.remat=true"])
+            states = {}
+            for tag in ("no mesh", "mesh"):
+                trainer = Trainer(model=build_model(cfg, NUM_CLASSES),
+                                  loss=LOSS[name](np.ones(NUM_CLASSES, np.float32)),
+                                  opt=OptimizerConfig(learning_rate=1e-3, batch_size=2,
+                                                      seed=SEED),
+                                  receptive_field=cfg["arch"]["receptive_field"],
+                                  mesh=mesh if tag == "mesh" else None, **kw)
+                check(trainer.model.remat, f"remat mesh {name}: arch.remat did not reach it")
+                reset_counts()
+                stats = trainer.train_epoch(ds, 0)
+                torch.cuda.synchronize()
+                parts[f"remat mesh {name} {tag}"] = counts()
+                states[tag] = ({k: v.detach().clone()
+                                for k, v in trainer.model.state_dict().items()},
+                               [t.clone() for st in trainer.optimizer.state.values()
+                                for t in st.values() if torch.is_tensor(t)], stats)
+                check(np.isfinite(stats["ce"]), f"remat mesh {name} {tag}: ce {stats['ce']}")
+                del trainer
+            (p0, a0, s0), (p1, a1, s1) = states["no mesh"], states["mesh"]
+            same = (p0.keys() == p1.keys() and all(torch.equal(p0[k], p1[k]) for k in p0)
+                    and len(a0) == len(a1) and all(torch.equal(x, y) for x, y in zip(a0, a1))
+                    and s0["ce"] == s1["ce"])
+            launched = parts[f"remat mesh {name} mesh"]
+            line[name] = {"trials": len(ds), "bit_equal": same,
+                          "launches": {k: c for k, c in launched.items() if c}}
+            print(f"remat mesh: NCCL world 1, one {name} remat epoch of {len(ds)} trials with "
+                  f"make_mesh(1, 1, 1) and without: parameters, Adam moments and ce bit for "
+                  f"bit equal: {same}; launches {json.dumps(line[name]['launches'])}",
+                  flush=True)
+            check(same, f"remat mesh {name}: the world-1 mesh epoch differs from the one without")
+            check(launched == parts[f"remat mesh {name} no mesh"] and all(
+                launched[k] > 0 for k in (("gcn_core", "gcn_grads", "window_sum")
+                                          if name == "rt-st-gcn" else
+                                          ("temporal_shift", "temporal_shift_bwd"))),
+                  f"remat mesh {name}: launches {launched}")
+    finally:
+        dist.destroy_process_group()
+    if torch.cuda.device_count() >= 2:
+        line["multi_rank_remat"] = multi_rank_vs_one(data_dir, "remat mesh", _rt_remat_step,
+                                                     "seq")
+    else:
+        line["multi_rank_remat"] = "not run: 1 card"
+
+    # the native loader on the trials the epochs read
+    paths = sorted(glob.glob(os.path.join(data_dir, "*", "*", "features", "*.npy")))
+    refs = [np.load(p).astype(np.float32) for p in paths]
+    with Prefetcher(paths, ahead=4, threads=2) as pf:
+        fetched = list(pf)
+    same = len(paths) > 0 and all(
+        np.array_equal(load_npy_f32(p), r) and np.array_equal(f, r) and f.dtype == np.float32
+        for p, r, f in zip(paths, refs, fetched))
+    line["native_loader"] = {"files": len(paths), "bit_equal": same}
+    print(f"native .npy loader: {len(paths)} synthetic trials, load_npy_f32 and the "
+          f"Prefetcher equal to np.load's float32 bit for bit: {same}", flush=True)
+    check(same, "native loader: an array differs from np.load's")
+    print(json.dumps({"remat_mesh": line}), flush=True)
+    return parts
+
+
 # -------------------------------------------------------------- main path
 
 
@@ -5325,6 +5530,20 @@ def run() -> int:
             recs[name]["sp_launches"] = n
     reset_all_counts()
     phase_done("SP window kernels", t_phase)
+
+    # the ablation profiler's variants, then remat under a world-1 mesh and
+    # the native loader, each counted step or epoch with the counters at zero
+    t_phase = time.perf_counter()
+    for part in ablation_phase().values():
+        launched = {k: launched[k] + part[k] for k in launched}
+    reset_all_counts()
+    phase_done("ablation", t_phase)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data_dir:
+        for part in remat_mesh_phase(data_dir).values():
+            launched = {k: launched[k] + part[k] for k in launched}
+    reset_all_counts()
+    phase_done("remat under a mesh, native loader", t_phase)
 
     # the kernels line
     meta = {

@@ -21,9 +21,16 @@ window, CoST-GCN's as an ST-GCN window of one frame with no stride, as the
 JAX package counts them); the JAX package counts neither for Shift-GCN, so
 there they are null.
 
+The record also gives the peak device memory of the timed steps
+(``peak_mib``). ``--remat`` trains with ``arch.remat`` (each layer
+recomputed in the backward pass), as ``--set arch.remat=true`` does.
+:func:`make_step` and :func:`measure_train_throughput` also take the JAX
+package's ablation knobs: ``fwd_only`` (forward and loss only, no backward
+or Adam) and ``use_mask=False`` (``mask=None`` end to end).
+
 Run (on the card):
     python -m stgx_torch.bench.train_throughput [--model co-st-gcn] [--dtype bfloat16]
-        [--fused] [--profile]
+        [--fused] [--remat] [--profile]
     python -m stgx_torch.bench.train_throughput \
         --config configs/pku-mmd/as_is/shiftgcn.json --trials 256 [--dtype bfloat16]
     python -m stgx_torch.bench.train_throughput --model st-gcn --trials 256
@@ -62,7 +69,7 @@ from stgx_torch.utils.flops import (
     stgcn_train_hbm_bytes_per_window,
 )
 
-__all__ = ["make_step", "measure_train_throughput", "profile_steps", "rooflines", "main",
+__all__ = ["make_step", "step_fn", "measure_train_throughput", "profile_steps", "rooflines", "main",
            "H100_PEAK_FLOPS", "H100_HBM_BYTES_S"]
 
 NUM_CLASSES = 52  # PKU-MMD's action classes
@@ -75,11 +82,12 @@ PROFILE_STEPS, PROFILE_TOP = 2, 12  # profiled steps, kernels listed
 SEED = 0  # of the random trials
 
 
-def make_step(trainer: Trainer, trials: int = 8, frames: int = 1024):
+def make_step(trainer: Trainer, trials: int = 8, frames: int = 1024, fwd_only: bool = False,
+              use_mask: bool = True):
     """One train step of ``trainer`` on ``trials`` stacked random trials of
     ``frames`` frames (window kind: ``trials`` windows of ``frames`` frames,
-    one label each): forward, loss, backward and Adam. Raises on a model
-    that is not on a CUDA device: a CPU run is no device measurement."""
+    one label each), as :func:`step_fn` makes it. Raises on a model that is
+    not on a CUDA device: a CPU run is no device measurement."""
     device = trainer.device
     if device.type != "cuda":
         raise RuntimeError("train throughput is a device measurement; the "
@@ -90,9 +98,23 @@ def make_step(trainer: Trainer, trials: int = 8, frames: int = 1024):
                      dtype=torch.float32, device=device)
     series = (trials,) if trainer.kind == "window" else (trials, frames)
     y = torch.tensor(rng.integers(0, NUM_CLASSES, size=series), device=device)
-    mask = torch.ones(series, dtype=torch.float32, device=device)
-
+    mask = torch.ones(series, dtype=torch.float32, device=device) if use_mask else None
     epoch = trainer.epoch_tensor(0) if trainer.pass_epoch else None
+    return step_fn(trainer, x, y, mask, epoch, fwd_only)
+
+
+def step_fn(trainer: Trainer, x, y, mask, epoch=None, fwd_only: bool = False):
+    """The step on ``(x, y, mask)``: forward, loss, backward and Adam; with
+    ``fwd_only`` the training forward and the loss only, without autograd
+    (the step then returns the loss). ``mask`` None runs the step with no
+    mask anywhere."""
+    if fwd_only:
+        def forward():
+            with torch.no_grad():
+                out, _ = trainer._outputs(x, mask, True, None, epoch)
+                return trainer.loss(out, *trainer._series(y, mask))
+
+        return forward
 
     def step():
         trainer.grad_step(x, y, mask, 1.0, None, epoch)
@@ -102,18 +124,21 @@ def make_step(trainer: Trainer, trials: int = 8, frames: int = 1024):
     return step
 
 
-def measure_train_throughput(trainer: Trainer, trials: int = 8, frames: int = 1024):
-    """Time ``STEPS`` train steps of ``trainer`` on stacked random trials,
-    after ``WARMUP`` untimed ones.
+def measure_train_throughput(trainer: Trainer, trials: int = 8, frames: int = 1024,
+                             fwd_only: bool = False, use_mask: bool = True,
+                             steps: int = STEPS, warmup: int = WARMUP):
+    """Time ``steps`` train steps of ``trainer`` on stacked random trials,
+    after ``warmup`` untimed ones (``fwd_only`` and ``use_mask`` as
+    :func:`make_step`).
 
     Returns ``(frames_per_s, step_ms_p50, step_ms)``: the median step and
     every step's time. A window-kind step classifies ``trials`` frames.
     """
-    step = make_step(trainer, trials, frames)
-    for _ in range(WARMUP):
+    step = make_step(trainer, trials, frames, fwd_only, use_mask)
+    for _ in range(warmup):
         step()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(STEPS)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(STEPS)]
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
     for s, e in zip(starts, ends):
         s.record()
         step()
@@ -200,6 +225,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--dtype", default="float32", choices=sorted(H100_PEAK_FLOPS))
     ap.add_argument("--fused", action="store_true",
                     help="the fused layer core (rt_fused forward and backward kernels)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward pass (arch.remat)")
     ap.add_argument("--trials", type=int, default=8,
                     help="stacked trials a step (window kind: windows a step)")
     ap.add_argument("--frames", type=int, default=1024,
@@ -211,7 +238,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     strict_numerics()
-    cfg = load_config(args.config or FAMILY_CONFIGS[args.model or "rt-st-gcn"], args.overrides)
+    overrides = args.overrides + (["arch.remat=true"] if args.remat else [])
+    cfg = load_config(args.config or FAMILY_CONFIGS[args.model or "rt-st-gcn"], overrides)
     name = cfg["processor"]["model"]
     if args.model is not None and name != args.model:
         raise ValueError(f"--model {args.model} but {args.config} configures {name}")
@@ -226,7 +254,9 @@ def main(argv=None) -> dict:
         pass_epoch=name in MODEL_EPOCH_ARG,
     )
     frames = cfg["arch"]["receptive_field"] if kind == "window" else args.frames
+    torch.cuda.reset_peak_memory_stats(trainer.device)
     fps, p50, step_ms = measure_train_throughput(trainer, args.trials, frames)
+    peak_mib = torch.cuda.max_memory_allocated(trainer.device) / 2**20
     tflops = share = hbm_share = None
     macs, nbytes = rooflines(model, name, args.dtype, frames)
     if macs is not None:
@@ -235,6 +265,7 @@ def main(argv=None) -> dict:
         hbm_share = fps * nbytes / H100_HBM_BYTES_S
     record = {
         "model": name, "kind": kind, "dtype": args.dtype, "fused": args.fused,
+        "remat": bool(cfg["arch"].get("remat", False)), "peak_mib": peak_mib,
         "trials": args.trials, "frames": frames, "steps": STEPS,
         "step_ms_p50": p50, "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
         "frames_per_s": fps, "model_tflops": tflops, "peak_share": share,

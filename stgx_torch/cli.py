@@ -59,10 +59,9 @@ with ``arch.pipeline`` MS-TCN's refinement stages one a ``model`` rank
 trial's for the frame kinds, each window's W for the window kinds, where
 they divide; :mod:`stgx_torch.parallel.halo`). Expert parallelism
 (:mod:`stgx_torch.parallel.ep`) is a library, reached by no config, as in
-the JAX package. Refused: ``arch.remat`` under a mesh (not ported yet,
-ROADMAP.md's queue 1 item 10.4), and an ``arch.gcn_impl`` other than the
-hand-written kernels, since the port has no other graph-conv route on the
-card.
+the JAX package. ``arch.remat`` trains under any ``job.mesh``. Refused: an
+``arch.gcn_impl`` other than the hand-written kernels, since the port has no
+other graph-conv route on the card.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@
 
 Beside them an ``actions.txt`` whose first line is the background class.
 Trials come out in the canonical ``(L, V, C)`` float32 layout, first body
-only. Files load with plain ``np.load``.
+only. The directory dataset reads its ``.npy`` files through the native
+loader (:func:`stgx_torch.native.load_npy_f32`), as the JAX dataset does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import os
 import pickle
 
 import numpy as np
+
+from stgx_torch.native import load_npy_f32
 
 __all__ = ["SkeletonFileDataset", "SkeletonDirDataset", "class_distribution",
            "load_actions"]
@@ -70,12 +73,12 @@ class SkeletonDirDataset:
 
     def __getitem__(self, index: int):
         name = self.names[index]
-        data = np.load(os.path.join(self.data_dir, f"{name}.npy"))
+        data = load_npy_f32(os.path.join(self.data_dir, f"{name}.npy"))
         labels = np.loadtxt(
             os.path.join(self.label_dir, f"{name}.csv"), delimiter=",",
             dtype=np.float64,
         ).astype(np.int64)
-        return _to_lvc(data.astype(np.float32)[:, :, :, 0]), labels
+        return _to_lvc(data[:, :, :, 0]), labels
 
     def lengths(self) -> list[int]:
         """Trial lengths without loading features (reads label CSVs)."""

@@ -75,7 +75,11 @@ and ``window_ms`` (MS-GCN).
   ``reduce`` gathers across processes in trial order. Rank 0 alone writes
   checkpoints. The parameters are broadcast from rank 0 at the start.
   Under a mesh past one device the fused RT kernel is switched off, with
-  the JAX ``Trainer``'s warning, and ``remat`` is refused.
+  the JAX ``Trainer``'s warning. ``remat`` runs under every layout: each
+  layer's recompute in the backward pass runs under the layout the layer
+  ran under, its collectives again in the same order on every rank
+  (:mod:`stgx_torch.models._remat`), and the pipelined stages keep it, as
+  the JAX pipeline does.
 * **The mesh's ``model`` axis**, as the JAX ``Trainer``'s ``place_params``
   uses it: tensor parallelism for every family and kind
   (:func:`stgx_torch.parallel.tp.shard_params_tp` cuts the parameters, and
@@ -93,8 +97,6 @@ and ``window_ms`` (MS-GCN).
   for the generator stage and the refinement alike; the refinement's
   dilated convs take their halos from the other data ranks
   (:class:`stgx_torch.models.msgcn.MsGcn`).
-
-Not ported yet (ROADMAP.md, queue 1 item 10.4): ``remat`` under a mesh.
 """
 
 from __future__ import annotations
@@ -205,16 +207,8 @@ class Trainer:
         )
 
     def _check_mesh(self):
-        def refuse(what, item):
-            raise NotImplementedError(
-                f"{what} is not ported to stgx_torch yet; see ROADMAP.md, queue 1 item {item}")
-
         tp = self.mesh.shape["model"] > 1 and not self.pipeline
         if self.mesh.size > 1:
-            # MS-TCN and MS-GCN keep the flag on their stages
-            if any(getattr(m, "remat", False) for m in self.model.modules()):
-                refuse(f"arch.remat under a mesh past one device (the {self.kind!r} kind on "
-                       f"the mesh {self.mesh.shape})", "10.4")
             from stgx_torch.ops.rt_fused import rt_fused_enabled, set_rt_fused
 
             if rt_fused_enabled():

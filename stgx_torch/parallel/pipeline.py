@@ -214,15 +214,20 @@ def _sub(params: dict, prefix: str) -> dict:
     return {k[len(prefix) + 1:]: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
-def _refine(model, params, y, mesh, axis, num_microbatches):
+def _refine(model, params, y, mesh, axis, num_microbatches, dropout):
     """Every refinement stage's output ``(stages, N, L, classes)`` over the
-    pipeline, from the generator's per-frame output ``y``."""
+    pipeline, from the generator's per-frame output ``y``. With the stages'
+    ``dropout`` 0 they run their training form, which keeps ``remat`` (its
+    recompute in the schedule's backward), as the JAX pipeline does; it
+    draws no random number, so it equals the eval form."""
     names = [f"{STAGES}.{s}" for s in range(len(model.refinement_stages))]
     stacked = stack_stage_params({n: _sub(params, n) for n in names}, names)
     template = model.refinement_stages[0]
+    train = {"train": dropout == 0.0}
 
     def stage_fn(sp, yin):
-        return functional_call(template, sp, (model.prob(yin)[:, :, None, :],))[:, :, 0, :]
+        return functional_call(template, sp, (model.prob(yin)[:, :, None, :],),
+                               train)[:, :, 0, :]
 
     return pipeline_apply(stage_fn, stacked, y, mesh, axis, num_microbatches)
 
@@ -234,11 +239,11 @@ def mstcn_apply_pipelined(model, x, mesh, axis: str = "model",
     sequential model's (eval form; with dropout 0, as the ``Trainer``
     requires, also the training form). ``params`` (``{name: tensor}``, e.g.
     cast for bf16 compute) replaces the model's own."""
-    uniform_refine(model, 1)
+    dropout = uniform_refine(model, 1)[3]
     params = dict(model.named_parameters()) if params is None else params
     y = functional_call(model.generator_stage, _sub(params, "generator_stage"), (x,))
     y = y.mean(dim=2)  # pool joints: (N, L, C)
-    refined = _refine(model, params, y, mesh, axis, num_microbatches)
+    refined = _refine(model, params, y, mesh, axis, num_microbatches, dropout)
     return torch.cat([model.out(y)[None], model.out(refined)])
 
 
@@ -247,7 +252,7 @@ def msgcn_refine_pipelined(model, gen_logits, mesh, axis: str = "model",
     """MS-GCN's refinement over pipelined stages: ``gen_logits`` the ST-GCN
     generator's window logits as a ``(1, T, classes)`` series; returns
     ``(stages + 1, 1, T, classes)`` as ``MsGcn.forward``."""
-    uniform_refine(model, 0)
+    dropout = uniform_refine(model, 0)[3]
     refined = _refine(model, dict(model.named_parameters()), gen_logits, mesh, axis,
-                      num_microbatches)
+                      num_microbatches, dropout)
     return torch.cat([model.out(gen_logits)[None], model.out(refined)])

@@ -18,6 +18,9 @@ the CPU — the counterpart of ``tests/test_distributed_train.py`` and
 * A 2-rank run resumed from the ``epoch-0`` checkpoint (written by rank 0,
   restored by both) ends its next epoch bit for bit where the unbroken run
   does.
+* With ``arch.remat`` and dropout drawn from each epoch's generator, the
+  two epochs on either layout end bit for bit where the stored run does:
+  each layer's recompute replays its masks under the layout it ran under.
 * Metrics reduced across 2 ranks, each holding a disjoint block of the
   trials, equal one process visiting them all (and the JAX package's); a
   truncated evaluation averages only the visited rows.
@@ -71,8 +74,9 @@ def _metrics(mod, classes):
     return [mod.F1Score(classes), mod.EditScore(classes), mod.ConfusionMatrix(classes)]
 
 
-def run_training(params, mesh=None, dropout=0.0):
-    """Two epochs and an evaluation of the port's Trainer from ``params``."""
+def run_training(params, mesh=None, dropout=0.0, remat=False):
+    """Two epochs and an evaluation of the port's Trainer from ``params``
+    (with ``arch.remat`` if ``remat``)."""
     from stgx_torch.graph import load_skeleton
     from stgx_torch.models.rtstgcn import RtStgcn
     from stgx_torch.parallel.loop import OptimizerConfig, Trainer
@@ -81,7 +85,7 @@ def run_training(params, mesh=None, dropout=0.0):
     from stgx_torch.weights import from_jax_params
 
     model = RtStgcn(**ARCH, graph=load_skeleton("imu_fogit_ABCD"), dropout=(dropout, 0.0),
-                    device="cpu")
+                    remat=remat, device="cpu")
     model.load_state_dict(from_jax_params(params, model), strict=True)
     trainer = Trainer(model=model, kind="frame", loss=Loss(np.ones(CLASSES, np.float32)),
                       opt=OptimizerConfig(learning_rate=LR, batch_size=4, epochs=EPOCHS),
@@ -154,6 +158,7 @@ def _ranks(rank, world, params, ckpt_dir):
         mesh = make_mesh(data=data, seq=seq)
         for dropout in (0.0, DROPOUT):
             out[layout, dropout] = run_training(params, mesh, dropout)
+        out[layout, "remat"] = run_training(params, mesh, DROPOUT, remat=True)
     out["resumed"] = _resumed(params, make_mesh(data=1, seq=2), ckpt_dir)
     out["metrics"] = _reduced_metrics(rank, world)
     out["truncated"] = _reduced_metrics(rank, world, visit=(2, 1))
@@ -233,6 +238,15 @@ def test_both_ranks_end_equal(runs, layout, dropout):
         np.testing.assert_array_equal(x, y)
     for name in a["params"]:
         np.testing.assert_array_equal(a["params"][name], b["params"][name])
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_two_rank_remat_training_with_dropout_equals_the_stored_run(runs, layout):
+    for r in runs["ranks"]:
+        got, ref = r[layout, "remat"], r[layout, DROPOUT]
+        assert got["train"] == ref["train"] and got["eval"] == ref["eval"]
+        for name, value in ref["params"].items():
+            np.testing.assert_array_equal(got["params"][name], value, err_msg=name)
 
 
 def test_two_rank_run_resumed_from_epoch_0_equals_the_unbroken_run(runs):

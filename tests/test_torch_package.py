@@ -2,7 +2,8 @@
 checked on a CPU-only machine.
 
 * ``stgx_torch`` imports no ``jax``, ``flax`` or ``stgx`` module (checked in
-  a fresh interpreter, since this test process imports JAX itself);
+  a fresh interpreter, since this test process imports JAX itself), and
+  importing every module, the host tools' included, loads no matplotlib;
 * an entry point given no device on a machine without CUDA raises instead
   of running on the CPU;
 * the nvcc build compiles every source of ``stgx_torch/csrc`` for sm_90a,
@@ -50,17 +51,20 @@ def test_port_imports_nothing_of_jax_or_stgx():
             "stgx_torch.utils.torch_import", "stgx_torch.utils.notify",
             "stgx_torch.data.prefetch", "stgx_torch.models._remat",
             "stgx_torch.models.stgcn", "stgx_torch.models.aagcn", "stgx_torch.models.mstcn",
-            "stgx_torch.models.msgcn", "stgx_torch.parallel.segments"} <= set(modules)
+            "stgx_torch.models.msgcn", "stgx_torch.parallel.segments",
+            "stgx_torch.bench.ablate", "stgx_torch.data.prep", "stgx_torch.utils.visualize",
+            "stgx_torch.native"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *(f"importlib.import_module({m!r})" for m in modules),
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'orbax', 'stgx')",
         "             or m.startswith(('jax.', 'flax.', 'jaxlib', 'orbax.', 'stgx.')))",
         "print(bad)",
+        "print('matplotlib' in sys.modules)",  # visualize imports it only to plot
     ])
     out = _python(code)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    assert out.stdout.split() == ["[]", "False"]
 
 
 @pytest.mark.parametrize("entry", ["default_device", "build_model", "RtStgcn",

@@ -20,7 +20,10 @@ on 8 gloo ranks against the JAX package on one device — the counterpart of
   top-1 within ``1e-6``, the parameters within ``atol = 1e-4``,
   ``rtol = 1e-3``, and every rank ends with the same parameters. The JAX
   checks of a pipelined ``Trainer`` (the kind, a ``model`` axis, zero
-  dropout) raise their ``ValueError`` s.
+  dropout) raise their ``ValueError`` s. With ``arch.remat`` the stages keep
+  it, as the JAX pipeline does (each layer recomputed in the schedule's
+  backward): the epoch's losses, evaluation and parameters equal the
+  stored epoch's bit for bit on every rank.
 * ``python -m stgx_torch.cli train --config configs/synth/mstcn_pp.json``
   over its 8 gloo processes (``data`` 1, ``seq`` 2, ``model`` 4) against
   ``stgx.cli.cmd_train`` on the same data and the same starting weights (a
@@ -140,11 +143,14 @@ def _epoch(mesh, params):
     the validation errors of a pipelined Trainer."""
     from stgx_torch.models import MsTcn
 
-    tr = _trainer(_port(MsTcn, MSTCN, params["ms-tcn"]), mesh, pipeline=True)
-    stats = tr.train_epoch(_trials(), 0)
-    ev = tr.evaluate(_trials())
-    out = {"stats": stats, "eval": ev,
-           "params": {k: v.detach().numpy() for k, v in tr.model.state_dict().items()}}
+    out = {}
+    for key, remat in (("", False), ("remat ", True)):
+        tr = _trainer(_port(MsTcn, dict(MSTCN, remat=remat), params["ms-tcn"]), mesh,
+                      pipeline=True)
+        stats = tr.train_epoch(_trials(), 0)
+        out.update({f"{key}stats": stats, f"{key}eval": tr.evaluate(_trials()),
+                    f"{key}params": {k: v.detach().numpy()
+                                     for k, v in tr.model.state_dict().items()}})
     try:
         _trainer(MsTcn(**dict(MSTCN, dropout=(0.1,) * 5), device="cpu"), mesh, pipeline=True)
         out["dropout"] = "no error"
@@ -284,6 +290,16 @@ def test_trainer_pipelined_epoch_matches_sequential(runs, jax_ref):
         for k, v in got["params"].items():
             np.testing.assert_allclose(v, ref[k], atol=1e-4, rtol=1e-3, err_msg=k)
             np.testing.assert_array_equal(v, first[k])  # every rank the same parameters
+
+
+def test_trainer_pipelined_remat_epoch_equals_the_stored_one(runs):
+    for out in runs:
+        got = out["epoch"]
+        for key in ("ce", "mse", "top1", "top5"):
+            assert got["remat stats"][key] == got["stats"][key], key
+            assert got["remat eval"][key] == got["eval"][key], key
+        for k, v in got["params"].items():
+            np.testing.assert_array_equal(got["remat params"][k], v, err_msg=k)
 
 
 def test_trainer_pipeline_validation(runs):

@@ -12,6 +12,10 @@ against the JAX ``Trainer`` on one device; and the halo exchange's reach.
   at ``seq`` 4) and one refinement stage of 4 layers, whose dilation of 8
   spans two of ``data`` 2's 4-window blocks. The loss within
   ``rtol = 1e-5``, every gradient, gathered whole, within ``atol = 1e-5``.
+* With ``arch.remat`` (MS-TCN's refinement at ``seq`` 4, MS-GCN BatchNorm
+  on ``data`` 2 × ``seq`` 2) the step equals the stored step bit for bit:
+  each layer's recompute exchanges its halos again at the layout it ran
+  under (the refinement's over ``data``).
 * MS-GCN's refinement under ``data`` 2 (an eval forward of the same 8
   windows): each rank's refinement stage takes its 4 windows, not the
   chunk's 8, and every stage's outputs of every rank, joined, equal the JAX
@@ -38,6 +42,9 @@ NAMES = ("ms-gcn", "ms-tcn")
 PARAMS, IDS = T.sp_params(NAMES)
 MSGCN = ("ms-gcn", "BatchNorm", 50)
 BOUNDS = (0, 4, 7, 10, 13)  # the W = 52 blocks at seq 4 after two strides
+# arch.remat: MS-TCN's refinement layers at seq 4 (halos past a block);
+# MS-GCN's generator layers at seq 2 and its refinement over data 2
+REMAT = ((("ms-tcn", "LayerNorm", 16), "seq4"), (("ms-gcn", "BatchNorm", 50), "data2-seq2"))
 
 
 def _refine_blocks(state):
@@ -128,7 +135,7 @@ def _halo_whole():
 
 
 def _ranks(rank, world, layouts, states, msgcn_state):
-    out = T.sp_ranks(rank, world, layouts, states)
+    out = T.sp_ranks(rank, world, layouts, states, remat=REMAT)
     if world == 2:
         out["refine"] = _refine_blocks(msgcn_state)
     if world == 4:
@@ -169,6 +176,12 @@ def test_sp_step_matches_single_device(runs, case, layout):
     refs, outs = runs
     for rank, out in enumerate(outs[T.sp_world(layout)]):
         T.assert_step_matches(out[case, layout], refs[case], what=f"rank {rank}")
+
+
+@pytest.mark.parametrize("case,layout", REMAT, ids=[f"{n}-{m}-W{f}-{lay}" for (n, m, f), lay in REMAT])
+def test_remat_step_equals_the_stored_step(runs, case, layout):
+    refs, outs = runs
+    T.assert_remat_step(outs[T.sp_world(layout)], (case, layout), refs[case])
 
 
 def test_msgcn_refinement_runs_on_each_data_ranks_block(runs):

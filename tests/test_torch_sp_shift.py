@@ -21,6 +21,11 @@ frames are split over ``seq`` (:mod:`torch_tp_cases`, ``SP_*``), at
   three. Gradients within ``atol = 2e-4, rtol = 2e-3``, the teacher's
   bounds in ``tests/test_torch_tp_plus.py``.
 
+With ``arch.remat`` (Shift-GCN, BatchNorm, W = 50 at ``seq`` 2: blocks of
+25, then 13/12 and 7/6 after the strides) each unit's recompute exchanges
+its halos again at the bounds of the layout the unit ran under; the step
+equals the stored step bit for bit.
+
 Each world size (2, 4) is one gloo session that runs all its cases,
 started before the JAX references are computed.
 """
@@ -32,12 +37,13 @@ import torch_tp_cases as T
 NAMES = ("shift-gcn", "shift-gcn++-teacher")
 PARAMS, IDS = T.sp_params(NAMES)
 TOL = {"shift-gcn++-teacher": dict(atol=2e-4, rtol=2e-3)}
+REMAT = ((("shift-gcn", "BatchNorm", 50), "seq2"),)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     return T.sp_sessions(tmp_path_factory, T.sp_states(NAMES),
-                         {**T.SP_LAYOUTS, **T.SP_TP_LAYOUTS})
+                         {**T.SP_LAYOUTS, **T.SP_TP_LAYOUTS}, REMAT)
 
 
 @pytest.mark.parametrize("case,layout", PARAMS, ids=IDS)
@@ -46,3 +52,10 @@ def test_sp_step_matches_single_device(runs, case, layout):
     tol = TOL.get(case[0], {})
     for rank, out in enumerate(outs[T.sp_world(layout)]):
         T.assert_step_matches(out[case, layout], refs[case], what=f"rank {rank}", **tol)
+
+
+@pytest.mark.parametrize("case,layout", REMAT, ids=[f"{n}-{m}-W{f}-{lay}" for (n, m, f), lay in REMAT])
+def test_remat_step_equals_the_stored_step(runs, case, layout):
+    refs, outs = runs
+    T.assert_remat_step(outs[T.sp_world(layout)], (case, layout), refs[case],
+                        **TOL.get(case[0], {}))

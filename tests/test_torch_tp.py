@@ -31,10 +31,15 @@ counterpart of ``tests/test_tp.py``, case for case.
   each rank keeping the FIFOs of its channel block, and CoST-GCN's, each
   rank keeping its block of the residual FIFO and the whole channels of the
   main FIFO (one frame gathered a layer a step).
-* Refusals: ``remat`` under a mesh names ROADMAP.md's queue 1 item 10.4,
-  under ``seq`` too (MS-TCN outside the pipeline, and the ``window`` kind,
-  whose ``seq`` itself is ported); a layer width the ``model`` axis does
-  not divide raises ``ValueError``.
+* ``arch.remat`` on the ``(2, 2, 2)`` mesh (RT-ST-GCN and CoST-GCN,
+  BatchNorm: statistics over ``data`` and ``seq``, window-sum and
+  temporal-conv halos over ``seq``, channel gathers over ``model``): the
+  step equals the stored step bit for bit, and so the JAX step within the
+  bounds above.
+* Refusals: a layer width the ``model`` axis does not divide raises
+  ``ValueError``; ``remat`` under a mesh, refused before it was ported,
+  now builds its ``Trainer`` (RT-ST-GCN at ``model`` 2, MS-TCN outside the
+  pipeline and the ``window`` kind under ``seq``).
 * ``python -m stgx_torch.cli train`` of CoST-GCN (dropout 0.2) as 2
   processes with ``job.mesh.model = 2``: both log the same lines, rank 0
   writes a ``final`` checkpoint of whole parameters, and the one-process
@@ -63,6 +68,7 @@ FAMILIES = {"rt-st-gcn": dict(BASE, stride=(1, 1)), "co-st-gcn": dict(BASE, dila
 CASES = [(name, norm) for name in FAMILIES for norm in ("LayerNorm", "BatchNorm")]
 LAYOUTS = {"model2": (1, 1, 2), "model4": (1, 1, 4), "data-seq-model": (2, 2, 2)}
 DROPOUT = 0.3
+REMAT = (("rt-st-gcn", "BatchNorm"), ("co-st-gcn", "BatchNorm"))  # on data-seq-model
 
 
 def _kwargs(name, norm, dropout=0.0, skeleton="imu_fogit_ABCD", **over):
@@ -82,16 +88,16 @@ def _batch():
     return x, y, mask
 
 
-def _port_step(name, norm, params, mesh, dropout=0.0):
+def _port_step(name, norm, params, mesh, dropout=0.0, remat=False):
     """Loss and whole gradients of one port ``grad_step`` under ``mesh``
-    (None: one process)."""
+    (None: one process), with ``arch.remat`` if ``remat``."""
     from stgx_torch.models import MODELS
     from stgx_torch.parallel.loop import OptimizerConfig, Trainer
     from stgx_torch.parallel.tp import gather_state
     from stgx_torch.utils import LOSS
     from stgx_torch.weights import from_jax_params
 
-    model = MODELS[name](**_kwargs(name, norm, dropout), device="cpu")
+    model = MODELS[name](**_kwargs(name, norm, dropout), remat=remat, device="cpu")
     model.load_state_dict(from_jax_params(params, model), strict=True)
     trainer = Trainer(model=model, kind="frame", loss=LOSS[name](np.ones(CLASSES, np.float32)),
                       opt=OptimizerConfig(), mesh=mesh)
@@ -146,12 +152,15 @@ def _ranks(rank, world, params, stream_x):
         else:
             out["dropout", layout] = _port_step("rt-st-gcn", "BatchNorm",
                                                 params["rt-st-gcn", "BatchNorm"], mesh, DROPOUT)
+            for case in REMAT:
+                out[case, layout, "remat"] = _port_step(*case, params[case], mesh, remat=True)
             out["replicate", layout] = _replicated_forward(mesh)
     return out
 
 
 def _refusals_in(mesh):
-    """The messages of what a mesh with a ``model`` axis still refuses."""
+    """The messages of what a mesh with a ``model`` axis refuses, or "no
+    error" where it trains."""
     from stgx_torch.models import MODELS, Stgcn
     from stgx_torch.parallel.loop import OptimizerConfig, Trainer
     from stgx_torch.parallel.mesh import make_mesh
@@ -303,14 +312,25 @@ def test_tp_cost_streaming_matches_jax(tp_runs, jax_ref, layout):
 
 
 def test_tp_refusals_name_their_roadmap_item(tp_runs):
+    """A width ``model`` does not divide is refused; ``remat`` under a mesh
+    (queue 1 item 10.4, refused until it was ported) is not."""
     messages = tp_runs("model2")[0]["refusals", "model2"]
-    assert messages["window seq"].startswith("NotImplementedError") and \
-        "'window' kind" in messages["window seq"] and \
-        "queue 1 item 10.4" in messages["window seq"], messages["window seq"]
     assert messages["width"].startswith("ValueError") and "does not split" in messages["width"]
-    assert "remat" in messages["remat"] and "queue 1 item 10.4" in messages["remat"]
-    assert "'frame_ms' kind" in messages["ms-tcn seq"] and \
-        "queue 1 item 10.4" in messages["ms-tcn seq"]
+    for key in ("window seq", "remat", "ms-tcn seq"):
+        assert messages[key] == "no error", (key, messages[key])
+
+
+@pytest.mark.parametrize("case", REMAT, ids=[f"{n}-{m}" for n, m in REMAT])
+def test_tp_remat_step_equals_the_stored_step(tp_runs, jax_ref, case):
+    ref = jax_ref[0][case]
+    for rank, out in enumerate(tp_runs("data-seq-model")):
+        loss, grads = out[case, "data-seq-model", "remat"]
+        stored_loss, stored = out[case, "data-seq-model"]
+        assert loss == stored_loss, (rank, loss, stored_loss)
+        np.testing.assert_allclose(loss, ref[1], rtol=1e-5)
+        for k, g in grads.items():
+            np.testing.assert_array_equal(g, stored[k], err_msg=f"rank {rank}: {k}")
+            np.testing.assert_allclose(g, ref[2][k], atol=1e-5, err_msg=f"rank {rank}: {k}")
 
 
 LEAF_FAMILIES = ("rt-st-gcn", "co-st-gcn", "st-gcn", "aa-gcn", "ms-tcn", "ms-gcn", "shift-gcn",

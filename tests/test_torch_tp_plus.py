@@ -39,6 +39,11 @@ over ``seq``, each rank's share of the distillation loss), held within the
 same bounds. W = 52, where the blocks come out uneven, is
 ``tests/test_torch_sp_plus.py``'s (in float64).
 
+With ``arch.remat`` (the teacher's units; the wrapper's student units,
+whose epoch argument the recompute gets again) the step equals the stored
+step on the same mesh bit for bit (:data:`REMAT`), and so the JAX step
+within the bounds above.
+
 Each world size (2, 4) is one gloo session that runs all its cases,
 started before the JAX references are computed, which run beside it.
 """
@@ -52,10 +57,12 @@ CASES = T.cases(NAMES)
 TOL = {("shift-gcn++", "BatchNorm"): dict(atol=5e-4, rtol=2e-3)}
 SP_FRAMES = {"shift-gcn++": (16,)}  # the TP cases' windows: the same JAX step
 SP_CASES = T.sp_cases(("shift-gcn++",), SP_FRAMES)
+REMAT = ((("shift-gcn++-teacher", "BatchNorm"), "data2-model2"),
+         (("shift-gcn++", "LayerNorm"), "model2"))
 
 
 def _ranks(rank, world, states, sp_states):
-    out = T.ranks(rank, world, T.LAYOUTS, states)
+    out = T.ranks(rank, world, T.LAYOUTS, states, REMAT)
     out.update(T.sp_ranks(rank, world, T.SP_LAYOUTS, sp_states))
     return out
 
@@ -83,3 +90,10 @@ def test_sp_step_matches_single_device(runs, layout, case):
     tol = TOL.get(case[:2], dict(atol=2e-4, rtol=2e-3))
     for rank, out in enumerate(outs[T.sp_world(layout)]):
         T.assert_step_matches(out[case, layout], refs[case[:2]], what=f"rank {rank}", **tol)
+
+
+@pytest.mark.parametrize("case,layout", REMAT, ids=[f"{n}-{m}-{lay}" for (n, m), lay in REMAT])
+def test_remat_step_equals_the_stored_step(runs, case, layout):
+    refs, outs = runs
+    tol = TOL.get(case, dict(atol=2e-4, rtol=2e-3))
+    T.assert_remat_step(outs[T.world(layout)], (case, layout), refs[case], **tol)

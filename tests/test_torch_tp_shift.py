@@ -23,6 +23,10 @@ family.
   step's within ``1e-5``; restored at ``model`` 2 and saved again, and
   restored in one process and saved again, it is the same file bit for bit.
 
+* With ``arch.remat`` at ``model`` 4 (BatchNorm) the step equals the
+  stored step bit for bit: each unit's recompute gathers its channels and
+  sums its statistics again, under the layout the unit ran under.
+
 Each world size (2, 4) is one gloo session that runs all its cases,
 started before the JAX references are computed.
 """
@@ -37,6 +41,7 @@ import torch_tp_cases as T
 
 NAMES = ("shift-gcn",)
 CASES = T.cases(NAMES)
+REMAT = ((("shift-gcn", "BatchNorm"), "model4"),)
 
 
 def _trainer(mesh=None):
@@ -69,7 +74,7 @@ def _checkpoint(mesh, out_dir):
 def _ranks(rank, world, states, out_dir):
     from stgx_torch.parallel.mesh import make_mesh
 
-    out = T.ranks(rank, world, T.LAYOUTS, states)
+    out = T.ranks(rank, world, T.LAYOUTS, states, REMAT)
     if world == 2:
         out["checkpoint"] = _checkpoint(make_mesh(1, 1, 2), out_dir)
     return out
@@ -88,6 +93,12 @@ def test_tp_step_matches_single_device(runs, layout, case):
     refs, outs = runs
     for rank, out in enumerate(outs[T.world(layout)]):
         T.assert_step_matches(out[case, layout], refs[case], what=f"rank {rank}")
+
+
+@pytest.mark.parametrize("case,layout", REMAT, ids=[f"{n}-{m}-{lay}" for (n, m), lay in REMAT])
+def test_remat_step_equals_the_stored_step(runs, case, layout):
+    refs, outs = runs
+    T.assert_remat_step(outs[T.world(layout)], (case, layout), refs[case])
 
 
 @pytest.mark.parametrize("size", [2, 4])

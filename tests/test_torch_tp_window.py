@@ -15,6 +15,14 @@ every gradient, gathered whole, within ``atol = 1e-5`` of the JAX step
 runs on each rank's windows and its scores are gathered whole for the
 refinement, which convolves across the windows.
 
+``arch.remat`` under the mesh (:data:`REMAT`: every family once, at
+``model`` 2 and on ``data`` 2 × ``model`` 2): each layer's recompute in the
+backward pass runs under the layout the layer ran under, its collectives
+(BatchNorm's sums over ``data``, LayerNorm's over ``model``, the channel
+gathers) again in the same order on every rank. The step equals the stored
+step on the same mesh bit for bit, and so the JAX step within the bounds
+above.
+
 Each world size (2, 4) is one gloo session that runs all its cases,
 started before the JAX references are computed (:mod:`torch_tp_cases`).
 
@@ -37,12 +45,14 @@ import torch_tp_cases as T
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("st-gcn", "aa-gcn", "ms-gcn", "ms-tcn")
 CASES = T.cases(NAMES)
+REMAT = ((("st-gcn", "BatchNorm"), "data2-model2"), (("aa-gcn", "LayerNorm"), "model2"),
+         (("ms-gcn", "BatchNorm"), "data2-model2"), (("ms-tcn", "LayerNorm"), "data2-model2"))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     states = T.states(NAMES)
-    return T.sessions(T.ranks, tmp_path_factory, states, T.LAYOUTS, states)
+    return T.sessions(T.ranks, tmp_path_factory, states, T.LAYOUTS, states, REMAT)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[f"{n}-{m}" for n, m in CASES])
@@ -51,6 +61,12 @@ def test_tp_step_matches_single_device(runs, layout, case):
     refs, outs = runs
     for rank, out in enumerate(outs[T.world(layout)]):  # every rank ends with the whole step
         T.assert_step_matches(out[case, layout], refs[case], what=f"rank {rank}")
+
+
+@pytest.mark.parametrize("case,layout", REMAT, ids=[f"{n}-{m}-{lay}" for (n, m), lay in REMAT])
+def test_remat_step_equals_the_stored_step(runs, case, layout):
+    refs, outs = runs
+    T.assert_remat_step(outs[T.world(layout)], (case, layout), refs[case])
 
 
 def test_cli_trains_shift_gcn_tensor_parallel(tmp_path):

@@ -113,12 +113,13 @@ def perturb(model, seed=3):
                 p.add_(torch.tensor(0.1 * rng.normal(size=p.shape), dtype=p.dtype))
 
 
-def build(name, norm, state=None, arch=None):
+def build(name, norm, state=None, arch=None, remat=False):
     """The port model on the CPU: from seed 0 and :func:`perturb`, or with
-    ``state`` (``{name: numpy array}``) loaded; ``arch`` as :func:`kwargs`."""
+    ``state`` (``{name: numpy array}``) loaded; ``arch`` as :func:`kwargs`;
+    ``remat`` its ``arch.remat``."""
     from stgx_torch.models import MODELS
 
-    model = MODELS[name](**kwargs(name, norm, arch), device="cpu",
+    model = MODELS[name](**kwargs(name, norm, arch), remat=remat, device="cpu",
                          generator=torch.Generator().manual_seed(0))
     if state is None:
         perturb(model)
@@ -131,16 +132,17 @@ def state_of(model):
     return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
-def port_step(name, norm, state, mesh, arch=None, frames=None, dtype=torch.float32):
+def port_step(name, norm, state, mesh, arch=None, frames=None, dtype=torch.float32,
+              remat=False):
     """Loss (ce + mse) and every gradient, gathered whole, of one port
     ``grad_step`` under ``mesh`` (None: one process); ``arch`` and
     ``frames`` as :func:`kwargs` and :func:`batch`; the model and the
-    batch in ``dtype``."""
+    batch in ``dtype``; ``remat`` the model's ``arch.remat``."""
     from stgx_torch.parallel.loop import MODEL_EPOCH_ARG, OptimizerConfig, Trainer
     from stgx_torch.parallel.tp import gather_state
     from stgx_torch.utils import LOSS
 
-    model = build(name, norm, state, arch).to(dtype)
+    model = build(name, norm, state, arch, remat).to(dtype)
     trainer = Trainer(model=model, kind=KIND[name], loss=LOSS[name](np.ones(CLASSES, np.float32)),
                       opt=OptimizerConfig(), mesh=mesh, pass_epoch=name in MODEL_EPOCH_ARG,
                       receptive_field=window(name, frames))
@@ -153,9 +155,11 @@ def port_step(name, norm, state, mesh, arch=None, frames=None, dtype=torch.float
     return float(ce) + float(mse), {k: g.numpy() for k, g in grads.items()}
 
 
-def ranks(rank, world, layouts, states):
+def ranks(rank, world, layouts, states, remat=()):
     """Every case of ``states`` (``{(name, norm): state}``) at every layout
-    of ``layouts`` that spans ``world`` ranks."""
+    of ``layouts`` that spans ``world`` ranks; each ``(case, layout)`` of
+    ``remat`` also with ``arch.remat`` (under the key ``(case, layout,
+    "remat")``)."""
     from stgx_torch.parallel.mesh import make_mesh
 
     out = {}
@@ -165,6 +169,8 @@ def ranks(rank, world, layouts, states):
         mesh = make_mesh(*shape)
         for case, state in states.items():
             out[case, layout] = port_step(*case, state, mesh)
+            if (case, layout) in remat:
+                out[case, layout, "remat"] = port_step(*case, state, mesh, remat=True)
     return out
 
 
@@ -221,6 +227,19 @@ def sessions(fn, tmp_path_factory, states, *args):
 
 def world(layout):
     return math.prod(LAYOUTS[layout])
+
+
+def assert_remat_step(outs, key, ref, what="", **tol):
+    """Every rank's ``arch.remat`` step of ``key`` (``(case, layout)``)
+    equals its stored step bit for bit and matches the JAX step ``ref``
+    within ``tol`` (:func:`assert_step_matches`)."""
+    for rank, out in enumerate(outs):
+        (loss, grads), (ref_loss, ref_grads) = out[(*key, "remat")], out[key]
+        assert loss == ref_loss, f"{what} rank {rank}: loss {loss} != {ref_loss}"
+        assert set(grads) == set(ref_grads)
+        for k, g in grads.items():
+            np.testing.assert_array_equal(g, ref_grads[k], err_msg=f"{what} rank {rank} {k}")
+        assert_step_matches(out[(*key, "remat")], ref, what=f"{what} rank {rank}", **tol)
 
 
 def assert_step_matches(got, ref, atol=1e-5, rtol=0.0, what=""):
@@ -286,10 +305,11 @@ def sp_states(names, frames=None):
     return {case: state_of(build(*case[:2], arch=SP_ARCH)) for case in sp_cases(names, frames)}
 
 
-def sp_ranks(rank, world, layouts, states, dtype=torch.float32):
+def sp_ranks(rank, world, layouts, states, dtype=torch.float32, remat=()):
     """Every case of ``states`` (``{(name, norm, frames): state}``) at every
     layout of ``layouts`` that spans ``world`` ranks (a ``model`` axis for
-    :data:`SP_TP_NAMES` only), its step in ``dtype``."""
+    :data:`SP_TP_NAMES` only), its step in ``dtype``; each ``(case,
+    layout)`` of ``remat`` also with ``arch.remat``, as :func:`ranks`."""
     from stgx_torch.parallel.mesh import make_mesh
 
     out = {}
@@ -297,21 +317,22 @@ def sp_ranks(rank, world, layouts, states, dtype=torch.float32):
         if math.prod(shape) != world:
             continue
         mesh = make_mesh(*shape)
-        for (name, norm, frames), state in states.items():
-            if shape[2] == 1 or name in SP_TP_NAMES:
-                out[(name, norm, frames), layout] = port_step(name, norm, state, mesh, SP_ARCH,
-                                                              frames, dtype)
+        for case, state in states.items():
+            if shape[2] == 1 or case[0] in SP_TP_NAMES:
+                for key in (False, True) if (case, layout) in remat else (False,):
+                    out[(case, layout, "remat") if key else (case, layout)] = port_step(
+                        *case[:2], state, mesh, SP_ARCH, case[2], dtype, remat=key)
     return out
 
 
-def sp_start(tmp_path_factory, states, layouts, dtype=torch.float32):
+def sp_start(tmp_path_factory, states, layouts, dtype=torch.float32, remat=()):
     """Start one gloo session a world size of ``layouts`` running
     :func:`sp_ranks`; returns ``{world: wait for its ranks' results}``."""
     from test_torch_spawn import start
 
     worlds = sorted({math.prod(shape) for shape in layouts.values()})
     return {w: start(sp_ranks, w, tmp_path_factory.mktemp("sp"), layouts, states, dtype,
-                     timeout=400) for w in worlds}
+                     remat, timeout=400) for w in worlds}
 
 
 def sp_references(states):
@@ -320,11 +341,11 @@ def sp_references(states):
             for case, state in states.items()}
 
 
-def sp_sessions(tmp_path_factory, states, layouts):
+def sp_sessions(tmp_path_factory, states, layouts, remat=()):
     """``(JAX references, {world: every rank's sp_ranks})`` of the cases of
-    ``states`` at ``layouts``: the gloo sessions started first, the
-    references computed while they run."""
-    pending = sp_start(tmp_path_factory, states, layouts)
+    ``states`` at ``layouts`` (``remat`` as :func:`sp_ranks`): the gloo
+    sessions started first, the references computed while they run."""
+    pending = sp_start(tmp_path_factory, states, layouts, remat=remat)
     refs = sp_references(states)
     return refs, {w: results() for w, results in pending.items()}
 
