@@ -216,6 +216,21 @@ remat step at seq = 2 over two NCCL ranks against one rank; and the native
 ``.npy`` loader on the synthetic trials those epochs read, bit for bit
 ``np.load``'s float32.
 
+Last, the profiling probes, each with the counters at zero. The traffic
+audit (``stgx_torch.bench.traffic_audit``, ``audit_phase``) of RT-ST-GCN₉'s
+train step at AUDIT_RT frames in fp32 and bf16: every device activity of
+the profiled step in a row, the rows' device time the busy time within
+1 %, each kernel row's launches the counters' and its bytes the kernel
+table's (``table_bytes``), backward rows, bytes a frame at least the
+analytic minimum, the loss unchanged by the counting. The switch probe
+(``switch_probe_phase``) for RT-ST-GCN₉ and CoST-GCN₉ in fp32: every
+variant runs, the bracket's gradients bit for bit, the switches put back,
+the ``rt_fused`` variant on the fused kernels only. The int8 probe
+(``quant_probe_phase``) for RT-ST-GCN₉ at B = 1: every mode's and
+variant's cell equal to the plain versions' (w8 within TOL_MODEL), one
+launch a product site a frame, ``_act_scale`` put back, the figures and the
+static − dynamic histograms printed. The whole run's seconds follow.
+
 Every phase that fails ends the run with a non-zero exit. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -474,6 +489,11 @@ TOL_RESUME, TOL_GRAPH = 1e-5, 1e-5
 # the ablation phase's short steps: RT9's stacked trials x frames, ST-GCN's
 # windows; one counted step, then WARMUP / STEPS timed ones a variant
 ABL_RT, ABL_ST_WINDOWS, ABL_WARMUP, ABL_STEPS = (2, 256), 32, 1, 3
+# the profiling probes: the traffic audit's RT9 step (stacked trials,
+# frames), the switch probe's steps (one counted, then WARMUP / STEPS timed
+# a variant), the int8 probe's frames at B = 1 (its figures one replay each)
+AUDIT_RT, SWITCH_SHAPE, SWITCH_WARMUP, SWITCH_STEPS = (2, 1024), (2, 256), 1, 3
+QUANT_PROBE_FRAMES, QUANT_PROBE_REPEATS, QUANT_PROBE_HELD = 1024, 1, 128
 
 
 class SmokeFailure(Exception):
@@ -5117,6 +5137,207 @@ def remat_mesh_phase(data_dir):
     return parts
 
 
+# ------------------------------------------------------- profiling probes
+
+
+def table_bytes(kernel, dims, itemsize):
+    """The bytes the kernel table counts for one launch of ``kernel`` at the
+    shapes ``dims`` of its tensor arguments (``itemsize`` their type's): the
+    counts of kernel_phase and backward_kernel_phase, each input read once
+    and each output written once, the weights' gradients in fp32."""
+    if kernel == "window_sum":
+        n, l, v, c = dims[0]
+        return 2 * itemsize * n * l * v * c
+    x, W = dims[0], dims[-2] if kernel == "rt_fused" else dims[-1]
+    p, cin, cout = W
+    v = x[-2]
+    rows = x[0] * (x[1] if len(x) == 4 else 1)
+    weights = p * v * v + p * cin * cout
+    if kernel == "gcn_core":
+        return itemsize * (rows * v * (cin + cout) + weights)
+    if kernel == "rt_fused":
+        return itemsize * (rows * v * (cin + cout) + weights + v * cout)
+    if kernel == "gcn_grads":
+        return itemsize * (rows * v * (cin + cout) + weights) + 4 * weights
+    # rt_fused_bwd: gx written in x's type, (gA, gW, gbe) in fp32
+    return itemsize * (rows * v * (2 * cin + cout) + weights) + 4 * (weights + v * cout)
+
+
+def audit_phase():
+    """RT9's train step of AUDIT_RT frames through the traffic audit
+    (``stgx_torch.bench.traffic_audit``) in fp32 and bf16, the counters at
+    zero: no device activity of the profiled step outside a row, the rows'
+    device ms the step's busy ms within 1 %, each kernel row's launches the
+    counters' over the counted step (2 gcn_core, 1 gcn_grads and 2
+    window_sum a layer) and its bytes table_bytes' at its shapes, backward
+    rows (a norm's among them), bytes a frame at least the analytic minimum,
+    and the counted step's loss the uncounted one's bit for bit. Returns
+    the launches of each run."""
+    from stgx_torch.bench import traffic_audit as ta
+    from stgx_torch.bench.train_throughput import trainer_for
+    from stgx_torch.config import load_config
+
+    parts = {}
+    trials, frames = AUDIT_RT
+    for dtype in ("float32", "bfloat16"):
+        tag = f"audit RT9 {dtype}"
+        trainer = trainer_for(load_config(CONFIG), dtype)
+        n = len(trainer.model.layers)
+        reset_counts()
+        out = ta.audit(trainer, "rt-st-gcn", frames, trials, top=10)
+        parts[tag] = counts()
+        rows = out["rows"]
+        kernel_rows = [r for r in rows if r["op"].startswith("kernel:")]
+        by_kernel = {}
+        for r in kernel_rows:
+            name = r["op"].split(":")[1]
+            by_kernel[name] = by_kernel.get(name, 0) + r["count"]
+            want = r["count"] * table_bytes(name, r["dims"], r["itemsize"])
+            check(r["read_bytes"] + r["write_bytes"] == want,
+                  f"{tag}: {name} {r['shapes']}: {r['read_bytes'] + r['write_bytes']} bytes, "
+                  f"the kernel table's {want}")
+        print(f"{tag}, {trials} x {frames} frames: step p50 {out['step_ms_p50']:.3f} ms; "
+              f"{out['ops']} ops, {out['est_total_mb']:.1f} MB ({out['est_bytes_per_frame_mb']:.4f}"
+              f" MB a frame, analytic minimum {out['min_bytes_per_frame_mb']:.4f}); "
+              f"{100 * out['traffic_share']:.1f} % of 3.35 TB/s at the step's time, the minimum "
+              f"{100 * out['min_share']:.1f} %; profiled busy {out['profiled_busy_ms']:.3f} ms, "
+              f"rows {out['rows_ms']:.3f}, outside {out['outside_ms']:.3f} ms "
+              f"({out['outside_launches']} launches); kernel launches {json.dumps(by_kernel)}, "
+              f"counters {json.dumps(out['kernel_launches'])}; flops "
+              f"{out['cost_analysis']['flops']:.4g} + kernel operations "
+              f"{out['cost_analysis']['kernel_operations']:.4g}; peak "
+              f"{out['memory_analysis']['peak_allocated_bytes'] / 2**20:.0f} MiB; loss "
+              f"unchanged under the counter: {out['loss_unchanged']}", flush=True)
+        print(f"  by phase and kernel: {json.dumps(out['groups'])}", flush=True)
+        for r in out["top"]:
+            print("  " + ta._line(r), flush=True)
+        check(out["outside_ms"] == 0 and out["outside_launches"] == 0,
+              f"{tag}: {out['outside_ms']} ms of device time in no row")
+        check(abs(out["rows_ms"] - out["profiled_busy_ms"]) <= 0.01 * out["profiled_busy_ms"],
+              f"{tag}: rows {out['rows_ms']} ms, busy {out['profiled_busy_ms']} ms")
+        check(by_kernel == out["kernel_launches"]
+              == {"gcn_core": 2 * n, "gcn_grads": n, "window_sum": 2 * n},
+              f"{tag}: kernel rows {by_kernel}, counters {out['kernel_launches']}")
+        check(any(r["phase"] == "backward" and r["node"] == "SqrtBackward0" for r in rows)
+              and any(r["phase"] == "backward" for r in kernel_rows),
+              f"{tag}: no backward rows of a norm or a kernel")
+        check(out["est_bytes_per_frame_mb"] >= out["min_bytes_per_frame_mb"],
+              f"{tag}: {out['est_bytes_per_frame_mb']} MB a frame under the minimum")
+        check(out["loss_unchanged"], f"{tag}: the counter changed the step's loss")
+        del trainer, out
+    return parts
+
+
+def switch_probe_phase():
+    """The switch probe (``stgx_torch.bench.switch_probe``) for RT9 and
+    CoST9 in fp32, SWITCH_SHAPE frames, one counted step and SWITCH_STEPS
+    timed a variant, the counters at zero: every variant ran without an
+    error, baseline_post's gradients baseline_pre's bit for bit, the
+    switches as strict_numerics() left them, and the rt_fused variant
+    launched rt_fused and rt_fused_bwd, no gcn_core. Returns the
+    launches."""
+    from stgx_torch.bench import switch_probe as sw
+
+    parts = {}
+    before = sw.switch_state()
+    for name, tol in (("rt-st-gcn", TOL_GRAD), ("co-st-gcn", TOL_GRAD_CO[9])):
+        reset_counts()
+        recs = {r["variant"]: r for r in sw.probe(name, "float32", shape=SWITCH_SHAPE,
+                                                   steps=SWITCH_STEPS, warmup=SWITCH_WARMUP)}
+        parts[f"switch probe {name}"] = counts()
+        for variant, r in recs.items():
+            if "refused" in r:
+                print(f"switch probe {name} {variant}: not run ({r['refused']})", flush=True)
+            elif "error" in r:
+                print(f"switch probe {name} {variant}: {r['error']}", flush=True)
+            else:
+                print(f"switch probe {name} {variant}, {SWITCH_SHAPE[0]} x {SWITCH_SHAPE[1]} "
+                      f"frames fp32: step {r['step_ms']:.3f} ms (spread "
+                      f"{r['repeat_spread_pct']:.1f} %), gradients {r['grad_dist']:.3e} of the "
+                      f"largest from baseline_pre's (TOL_GRAD {tol:g}), bit for bit "
+                      f"{r['grads_equal']}; launches {json.dumps(r['launches'])}", flush=True)
+        print(json.dumps({"switch_probe": name, "bracket": sw.bracket(recs.values())}),
+              flush=True)
+        errors = {v: r["error"] for v, r in recs.items() if "error" in r}
+        check(not errors, f"switch probe {name}: {errors}")
+        check(recs["baseline_post"]["grads_equal"],
+              f"switch probe {name}: baseline_post's gradients differ from baseline_pre's")
+        check(sw.switch_state() == before, f"switch probe {name}: switches left at "
+              f"{sw.switch_state()}, were {before}")
+        if name == "rt-st-gcn":
+            got = recs["rt_fused"]["launches"]
+            n = len(load_cfg(CONFIG)["arch"]["rt-st-gcn"]["in_ch"])
+            check(got == {"rt_fused": n, "rt_fused_bwd": n},
+                  f"switch probe rt_fused launched {got}")
+    return parts
+
+
+def quant_probe_phase():
+    """The int8 probe (``stgx_torch.bench.quant_probe``) for RT9 at B = 1
+    over QUANT_PROBE_FRAMES frames, the counters at zero: each mode's and
+    variant's eager cell (dynamic, static, w8, static_ones, the three
+    hybrids) over the first QUANT_PROBE_HELD of them (past the deepest FIFO;
+    an eager step of the B = 1 cell takes ~9 ms of host time) equal to its
+    run on the plain versions (w8 within TOL_MODEL), one launch a product
+    site a frame; then its figures (graph replays) and the static - dynamic
+    op and kernel histograms; ``_act_scale`` put back. Returns the
+    launches."""
+    import torch
+
+    import stgx_torch.bench.quant as tq
+    from stgx_torch.bench import quant_probe as qp
+    from stgx_torch.ops.int8_gemm import int8_gemm_plain, w8_gemm_plain
+
+    orig = tq._act_scale
+    parts = {}
+    model, x, qparams, scales = qp.setup(9, QUANT_PROBE_FRAMES)
+    sites = [s for s in scales if not s.endswith(".state")]
+    _, qstep, qinit = tq.QUANT_MODELS["rt-st-gcn"]
+    step = lambda st, x_t: qstep(model, qparams, st, x_t)  # noqa: E731
+    frames = x[:QUANT_PROBE_HELD, None]
+    none = {k: 0 for k in all_counts()}
+    cells = [("dynamic", "dynamic", None), ("static", "static", None), ("w8", "w8", None),
+             ("static_ones", "static", None)] + [
+        (f"hybrid_{f}", "dynamic", f) for f in qp.FAMILIES]
+    ones = dict.fromkeys(scales, 1.0)
+    for cell, mode, family in cells:
+        sc = ones if cell == "static_ones" else scales
+        kernel = "w8_gemm" if mode == "w8" else "int8_gemm"
+        with qp.cell_context(model, mode, sc, family):
+            reset_all_counts()
+            y = stream_logits(step, qinit(model, 1), frames)
+            got = all_counts()
+            with mock.patch.object(tq, "int8_gemm", int8_gemm_plain), \
+                    mock.patch.object(tq, "w8_gemm", w8_gemm_plain):
+                y_plain = stream_logits(step, qinit(model, 1), frames)
+        parts[f"quant probe {cell}"] = got
+        err, rel = rel_err(y, y_plain)
+        same = torch.equal(y, y_plain)
+        print(f"quant probe RT9 {cell}, B=1 x {QUANT_PROBE_HELD} frames: {got[kernel]} "
+              f"{kernel} ({len(sites)} sites a frame); kernels vs plain versions: "
+              f"{'equal' if same else 'differ'} (max abs err {err:.3e}, relative {rel:.3e})",
+              flush=True)
+        check(bool(torch.isfinite(y).all()), f"quant probe {cell}: non-finite logits")
+        check(got == {**none, kernel: len(sites) * QUANT_PROBE_HELD},
+              f"quant probe {cell} launched {got}")
+        check(rel <= TOL_MODEL if mode == "w8" else same,
+              f"quant probe {cell}: {err:.3e} from the plain versions")
+    check(tq._act_scale is orig, "quant probe: _act_scale not put back")
+    reset_all_counts()
+    out = qp.figures(model, x, qparams, scales, QUANT_PROBE_REPEATS)
+    parts["quant probe figures"] = all_counts()
+    check(tq._act_scale is orig, "quant probe: _act_scale not put back")
+    print("quant probe RT9 figures, ms a frame (graph replays, B=1, "
+          f"{QUANT_PROBE_FRAMES} frames): " + json.dumps(
+              {k: v for k, v in out.items() if k.endswith("_ms")}), flush=True)
+    for key in ("op_diff_static_minus_dynamic", "total_ops", "kernel_diff_static_minus_dynamic",
+                "kernels_a_step"):
+        print(f"quant probe RT9 {key}: {json.dumps(out[key])}", flush=True)
+    check(out["op_diff_static_minus_dynamic"].get("aten::amax") == -len(sites),
+          f"quant probe: static - dynamic ops {out['op_diff_static_minus_dynamic']}")
+    return parts
+
+
 # -------------------------------------------------------------- main path
 
 
@@ -5181,6 +5402,7 @@ def run() -> int:
 
     strict_numerics()  # TF32 off for matmul and cuDNN; cuDNN deterministic
 
+    t_run = time.perf_counter()
     smi = smi_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5544,6 +5766,21 @@ def run() -> int:
             launched = {k: launched[k] + part[k] for k in launched}
     reset_all_counts()
     phase_done("remat under a mesh, native loader", t_phase)
+
+    # the profiling probes: the traffic audit, the switch probe and the int8
+    # probe, each with the counters at zero
+    for name, phase in (("traffic audit", audit_phase), ("switch probe", switch_probe_phase),
+                        ("int8 probe", quant_probe_phase)):
+        t_phase = time.perf_counter()
+        for part in phase().values():
+            for k, n in part.items():
+                if k in launched:
+                    launched[k] += n
+                else:
+                    int8_launched[k] += n
+        reset_all_counts()
+        phase_done(name, t_phase)
+    print(f"the whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     # the kernels line
     meta = {

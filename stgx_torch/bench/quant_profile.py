@@ -40,7 +40,7 @@ from unittest import mock
 
 import torch
 
-__all__ = ["profile_cell", "main"]
+__all__ = ["profile_cell", "device_activity", "main"]
 
 STEPS = 16  # profiled steps
 WARMUP = 8
@@ -63,8 +63,14 @@ def _patches(tq):
             + [(torch, "cat", "fifo"), (torch, "stack", "fifo")])
 
 
-def _groups(prof, labels, steps):
-    """Device ms a step by group and by kernel name, and launches a step."""
+def device_activity(prof, labels):
+    """``(range, name, ms)`` for every device activity of ``prof``: ``range``
+    the innermost host range named in ``labels`` open when its launch was
+    made (CUPTI's correlation of the activity with its launch call),
+    ``"other"`` where none was, None where the launch call was not
+    recorded. Ranges are matched by time alone, so the labelled ranges of
+    two threads must not overlap (the autograd engine's backward thread
+    runs while the thread that called ``backward`` waits)."""
     from torch.autograd import DeviceType
 
     events = list(prof.events())
@@ -72,25 +78,32 @@ def _groups(prof, labels, steps):
                     if e.device_type == DeviceType.CPU and e.name in labels)
     launch_at = {e.id: e.time_range.start for e in events
                  if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
-    by_group, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
-    unlinked = 0
+    out = []
     for e in events:
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
-        ms = e.time_range.elapsed_us() / 1e3
         t = launch_at.get(e.id)
-        group = "other"
-        if t is None:
-            unlinked += 1
-        else:  # the innermost range open at the launch: the latest start
-            for start, end, name in ranges:
+        group = None
+        if t is not None:
+            group = "other"
+            for start, end, name in ranges:  # the latest start holding t
                 if start > t:
                     break
                 if end >= t:
                     group = name
-        by_group[group] += ms
-        by_name[e.name] += ms
-        count[e.name] += 1
+        out.append((group, e.name, e.time_range.elapsed_us() / 1e3))
+    return out
+
+
+def _groups(prof, labels, steps):
+    """Device ms a step by group and by kernel name, and launches a step."""
+    by_group, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
+    unlinked = 0
+    for group, name, ms in device_activity(prof, labels):
+        unlinked += group is None
+        by_group[group or "other"] += ms
+        by_name[name] += ms
+        count[name] += 1
     names = sorted(by_name, key=by_name.get, reverse=True)
     return ({g: by_group[g] / steps for g in sorted(by_group)},
             [{"name": n[:100], "ms": by_name[n] / steps, "launches": count[n] / steps}

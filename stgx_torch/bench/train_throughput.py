@@ -69,8 +69,8 @@ from stgx_torch.utils.flops import (
     stgcn_train_hbm_bytes_per_window,
 )
 
-__all__ = ["make_step", "step_fn", "measure_train_throughput", "profile_steps", "rooflines", "main",
-           "H100_PEAK_FLOPS", "H100_HBM_BYTES_S"]
+__all__ = ["step_inputs", "make_step", "step_fn", "trainer_for", "measure_train_throughput",
+           "profile_steps", "rooflines", "main", "H100_PEAK_FLOPS", "H100_HBM_BYTES_S"]
 
 NUM_CLASSES = 52  # PKU-MMD's action classes
 # H100 SXM, NVIDIA data sheet (dense, 700 W): fp32 outside the tensor cores,
@@ -82,32 +82,40 @@ PROFILE_STEPS, PROFILE_TOP = 2, 12  # profiled steps, kernels listed
 SEED = 0  # of the random trials
 
 
-def make_step(trainer: Trainer, trials: int = 8, frames: int = 1024, fwd_only: bool = False,
-              use_mask: bool = True):
-    """One train step of ``trainer`` on ``trials`` stacked random trials of
-    ``frames`` frames (window kind: ``trials`` windows of ``frames`` frames,
-    one label each), as :func:`step_fn` makes it. Raises on a model that is
-    not on a CUDA device: a CPU run is no device measurement."""
-    device = trainer.device
-    if device.type != "cuda":
-        raise RuntimeError("train throughput is a device measurement; the "
-                           f"model is on {device}")
+def step_inputs(trainer: Trainer, trials: int = 8, frames: int = 1024, use_mask: bool = True):
+    """``(x, y, mask)`` of a step on ``trainer``'s device: ``trials`` stacked
+    trials of ``frames`` normal frames (window kind: ``trials`` windows, one
+    label each), then their labels, drawn from one numpy generator seeded
+    ``SEED`` in the JAX package's order; an all-ones mask, or None."""
     model = trainer.model
+    device = trainer.device
     rng = np.random.default_rng(SEED)
     x = torch.tensor(rng.normal(size=(trials, frames, model.num_joints, model.in_feat)),
                      dtype=torch.float32, device=device)
     series = (trials,) if trainer.kind == "window" else (trials, frames)
     y = torch.tensor(rng.integers(0, NUM_CLASSES, size=series), device=device)
     mask = torch.ones(series, dtype=torch.float32, device=device) if use_mask else None
+    return x, y, mask
+
+
+def make_step(trainer: Trainer, trials: int = 8, frames: int = 1024, fwd_only: bool = False,
+              use_mask: bool = True):
+    """One train step of ``trainer`` on :func:`step_inputs`, as
+    :func:`step_fn` makes it. Raises on a model that is not on a CUDA
+    device: a CPU run is no device measurement."""
+    device = trainer.device
+    if device.type != "cuda":
+        raise RuntimeError("train throughput is a device measurement; the "
+                           f"model is on {device}")
     epoch = trainer.epoch_tensor(0) if trainer.pass_epoch else None
-    return step_fn(trainer, x, y, mask, epoch, fwd_only)
+    return step_fn(trainer, *step_inputs(trainer, trials, frames, use_mask), epoch, fwd_only)
 
 
 def step_fn(trainer: Trainer, x, y, mask, epoch=None, fwd_only: bool = False):
     """The step on ``(x, y, mask)``: forward, loss, backward and Adam; with
-    ``fwd_only`` the training forward and the loss only, without autograd
-    (the step then returns the loss). ``mask`` None runs the step with no
-    mask anywhere."""
+    ``fwd_only`` the training forward and the loss only, without autograd.
+    The step returns the loss's ``(ce, mse)``. ``mask`` None runs the step
+    with no mask anywhere."""
     if fwd_only:
         def forward():
             with torch.no_grad():
@@ -117,11 +125,28 @@ def step_fn(trainer: Trainer, x, y, mask, epoch=None, fwd_only: bool = False):
         return forward
 
     def step():
-        trainer.grad_step(x, y, mask, 1.0, None, epoch)
+        ce, mse, *_ = trainer.grad_step(x, y, mask, 1.0, None, epoch)
         trainer.optimizer.step()
         trainer.optimizer.zero_grad(set_to_none=True)
+        return ce, mse
 
     return step
+
+
+def trainer_for(cfg, dtype: str = "float32", device=None) -> Trainer:
+    """The :class:`~stgx_torch.parallel.loop.Trainer` a step of ``cfg``'s
+    model runs in: its config's model (52 classes) on ``device`` (``cuda``
+    if None), the family's loss with unit class weights, Adam at 1e-4,
+    ``dtype`` compute, the epoch passed where the family takes it."""
+    name = cfg["processor"]["model"]
+    return Trainer(
+        model=build_model(cfg, NUM_CLASSES, device), kind=MODEL_KIND[name],
+        loss=LOSS[name](np.ones(NUM_CLASSES, np.float32)),
+        opt=OptimizerConfig(learning_rate=1e-4),
+        compute_dtype=dtype,
+        receptive_field=cfg["arch"].get("receptive_field", 50),
+        pass_epoch=name in MODEL_EPOCH_ARG,
+    )
 
 
 def measure_train_throughput(trainer: Trainer, trials: int = 8, frames: int = 1024,
@@ -243,16 +268,9 @@ def main(argv=None) -> dict:
     name = cfg["processor"]["model"]
     if args.model is not None and name != args.model:
         raise ValueError(f"--model {args.model} but {args.config} configures {name}")
-    model = build_model(cfg, NUM_CLASSES)
+    trainer = trainer_for(cfg, args.dtype)
+    model, kind = trainer.model, trainer.kind
     set_rt_fused(args.fused)
-    kind = MODEL_KIND[name]
-    trainer = Trainer(
-        model=model, kind=kind,
-        loss=LOSS[name](np.ones(NUM_CLASSES, np.float32)),
-        opt=OptimizerConfig(learning_rate=1e-4),
-        compute_dtype=args.dtype,
-        pass_epoch=name in MODEL_EPOCH_ARG,
-    )
     frames = cfg["arch"]["receptive_field"] if kind == "window" else args.frames
     torch.cuda.reset_peak_memory_stats(trainer.device)
     fps, p50, step_ms = measure_train_throughput(trainer, args.trials, frames)

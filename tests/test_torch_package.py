@@ -53,7 +53,8 @@ def test_port_imports_nothing_of_jax_or_stgx():
             "stgx_torch.models.stgcn", "stgx_torch.models.aagcn", "stgx_torch.models.mstcn",
             "stgx_torch.models.msgcn", "stgx_torch.parallel.segments",
             "stgx_torch.bench.ablate", "stgx_torch.data.prep", "stgx_torch.utils.visualize",
-            "stgx_torch.native"} <= set(modules)
+            "stgx_torch.native", "stgx_torch.bench.traffic_audit",
+            "stgx_torch.bench.switch_probe", "stgx_torch.bench.quant_probe"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         *(f"importlib.import_module({m!r})" for m in modules),
