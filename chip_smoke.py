@@ -41,7 +41,11 @@ Shift-GCN follows, at its PKU-MMD width (``configs/pku-mmd/as_is/shiftgcn.json``
 W = 50, random weights from the config's seed): the ``temporal_shift``
 kernel against its plain version at the seven shapes of its 20 launches per
 forward, and its backward kernel (``temporal_shift_bwd``) against
-``temporal_shift_vjp_plain`` at the same shapes; the offline forward of
+``temporal_shift_vjp_plain`` at the same shapes, each timed in fp32 and
+bf16 beside its bound in that type (the bf16 forward also against the fp32
+plain version rounded once); both again at 8 and 16 channels, at widths
+off the 16-byte vector and on storage off a 16-byte boundary
+(``shift_width_phase``); the offline forward of
 1024 windows (exactly 20 launches, logits against the all-plain run); the
 window streaming cell at B = 1 (20 launches a step, logits against the
 all-plain cell; under LayerNorm the streamed logits of frame t equal the
@@ -236,6 +240,10 @@ device, or outside the repository, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that a ``kernels`` line
 (with ``custom_ops``: the kernels registered as ``stgx::`` ops).
+
+``python3 chip_smoke.py --shift-kernels`` runs the shift kernels' phases
+alone (:func:`run_shift_kernels`), the way a change to them is timed
+against its parent on one card.
 """
 
 from __future__ import annotations
@@ -346,8 +354,8 @@ INT8_TOP1 = 0.8
 # the serving phase: serving.py's streams by config, frames a probe
 INT8_SERVE = {CONFIG: (1, B_STREAM, 1024), CO_CONFIG: (1, B_STREAM, 1024),
               CO_CONFIG_69: (1, B_STREAM)}
-INT8_SERVE_FRAMES = 64
-QUANT_AB_FRAMES, QUANT_AB_REPEATS = 512, 2  # quant_ab: frames replayed, repeats
+INT8_SERVE_FRAMES = 48
+QUANT_AB_FRAMES, QUANT_AB_REPEATS = 256, 2  # quant_ab: frames replayed, repeats
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on the
 # CUDA cores, TF32 and bf16 on the tensor cores
@@ -1393,12 +1401,73 @@ def shift_shapes(cfg):
     return shapes
 
 
+def shift_bounds(n, l, lo, c, itemsize):
+    """(forward bound, backward bound) of the shift at x (n, l, 25, c) and y
+    / g (n, lo, 25, c), each ``bound``'s triple, with the type's element
+    size: the forward reads x and the shifts once and writes y once, 3
+    operations an output (two products, one add, not fused); the backward
+    reads g and x once and writes gx (and reads the shifts, writes g_shift),
+    3 operations an input element (gx) and 3 an output (g_shift's product,
+    difference and add)."""
+    fwd = bound(itemsize * (n * 25 * c * (l + lo) + c), 0, instr=3 * n * lo * 25 * c)
+    bwd = bound(itemsize * (n * 25 * c * (lo + 2 * l) + 2 * c), 0,
+                instr=3 * n * 25 * c * (l + lo))
+    return fwd, bwd
+
+
+def add_bf16_record(recs, name, shape, ms, b16):
+    """Print and add a kernel's bf16 time beside its bf16 bound."""
+    print(f"  {name} {shape} bfloat16: kernel {ms:.4f} ms, bound {b16[0]:.4f} ms "
+          f"({'bytes' if b16[1] >= b16[2] else 'operations'})", flush=True)
+    r = recs[name]
+    r["bf16_ms"] = r.get("bf16_ms", 0.0) + ms
+    r["bf16_bound_ms"] = r.get("bf16_bound_ms", 0.0) + b16[0]
+
+
+def check_shift_bf16_rounding(name, x, shift, s):
+    """The bf16 forward is the fp32 plain version of the widened x and
+    shift, rounded once to bf16."""
+    from stgx_torch.ops.shift import temporal_shift, temporal_shift_plain
+
+    check_equal(f"{name} bfloat16 against the fp32 plain version rounded once",
+                temporal_shift(x, shift, s),
+                temporal_shift_plain(x.float(), shift.to(x.dtype).float(), s).to(x.dtype))
+
+
+def check_shift_bwd(name, x, sh, g, s, tol):
+    """The backward kernel against its plain version: gx the plain version's
+    bits, g_shift within ``tol`` of max(1, max|ref|), the same bits from run
+    to run. Returns g_shift's max abs error."""
+    import torch
+
+    from stgx_torch.ops.shift import temporal_shift_bwd, temporal_shift_vjp_plain
+
+    gx, gs = temporal_shift_bwd(x, sh, g, s)
+    ref_gx, ref_gs = temporal_shift_vjp_plain(x, sh, g, s)
+    check_equal(f"{name} gx", gx, ref_gx)
+    e, rel = rel_err(gs, ref_gs)
+    print(f"  {name}: gx the plain version's bits; g_shift max abs err {e:.3e} "
+          f"(relative {rel:.3e}, tolerance {tol:g})", flush=True)
+    check(bool(torch.isfinite(gs.float()).all()), f"{name}: non-finite g_shift")
+    check(rel <= tol, f"{name}: g_shift relative error {rel:.3e}")
+    check_repeatable(name, lambda: temporal_shift_bwd(x, sh, g, s))
+    return e
+
+
+SHIFT_CASES = [0.0, 1.0, -2.0, 3.0, 0.25, -0.75, 2.5, -3.3, 8.0, -8.0, 9.7, -12.0, 7.6, -7.9,
+               0.5, 5.01]
+
+
 def shift_kernel_phase(shapes):
     """The temporal_shift kernel against its plain version at each shape of
-    the Shift-GCN forward, SG_WINDOWS windows, fp32 and bf16, with shifts
-    that are integers, negative, fractional, exactly +-8 and beyond +-8.
-    Returns its record of the ``kernels`` line: times and bounds summed over
-    one forward's launches (each shape times its launches)."""
+    the Shift-GCN forward, SG_WINDOWS windows, fp32 and bf16 (bf16 also
+    against the fp32 plain version rounded once), with shifts that are
+    integers, negative, fractional, exactly +-8 and beyond +-8; its backward
+    at a train step's SG_THROUGHPUT_WINDOWS (``check_shift_bwd``). Returns
+    their records of the ``kernels`` line: fp32 and bf16 device times
+    (``device_ms``: the bf16 forward runs shorter than its wrapper's host
+    time) and bounds (each with its type's element size) summed over one
+    forward's launches (each shape times its launches)."""
     import numpy as np
     import torch
 
@@ -1411,62 +1480,101 @@ def shift_kernel_phase(shapes):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rng = np.random.default_rng(SEED)
-    cases = [0.0, 1.0, -2.0, 3.0, 0.25, -0.75, 2.5, -3.3, 8.0, -8.0, 9.7, -12.0, 7.6,
-             -7.9, 0.5, 5.01]
     recs = {}
     print("temporal_shift vs plain (csrc/temporal_shift.cu)", flush=True)
     for (l, c, s), count in shapes.items():
         shift = rng.uniform(-10.0, 10.0, size=c).astype(np.float32)
-        shift[: len(cases)] = cases
+        shift[: len(SHIFT_CASES)] = SHIFT_CASES
         shift = torch.tensor(shift, device="cuda")
         x32 = torch.randn(SG_WINDOWS, l, 25, c, generator=gen, device="cuda")
         shape = (SG_WINDOWS, l, 25, c, s)
-        errs = {}
+        lo = -(-l // s)
+        errs, ms = {}, {}
         for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
             x = x32.to(dt)
             errs[dt] = compare("temporal_shift", shape, lambda: temporal_shift(x, shift, s),
                                lambda: temporal_shift_plain(x, shift, s), str(dt)[6:], tol)
             check_repeatable("temporal_shift", lambda: (temporal_shift(x, shift, s),))
-        ms = time_ms(lambda: temporal_shift(x32, shift, s))
+            if dt == torch.bfloat16:
+                check_shift_bf16_rounding(f"temporal_shift {shape}", x, shift, s)
+            ms[dt] = device_ms(lambda: temporal_shift(x, shift, s))
         plain_ms = time_ms(lambda: temporal_shift_plain(x32, shift, s))
-        lo = -(-l // s)
-        # one read of x and of the shifts, one write of y; 3 operations an
-        # output (two products, one add, not fused)
-        nbytes = 4 * (SG_WINDOWS * 25 * c * (l + lo) + c)
-        b = bound(nbytes, 0, instr=3 * SG_WINDOWS * lo * 25 * c)
+        b32, b16 = (shift_bounds(SG_WINDOWS, l, lo, c, size)[0] for size in (4, 2))
         print(f"  x {count} launches per forward", flush=True)
-        add_record(recs, "temporal_shift", shape, errs[torch.float32], count * ms,
-                   count * plain_ms, None, tuple(count * t for t in b))
+        add_record(recs, "temporal_shift", shape, errs[torch.float32],
+                   count * ms[torch.float32], count * plain_ms, None,
+                   tuple(count * t for t in b32))
+        add_bf16_record(recs, "temporal_shift", shape, count * ms[torch.bfloat16],
+                        tuple(count * t for t in b16))
+        # the way earlier runs timed it: the wrapper's host time included
+        wall = count * time_ms(lambda: temporal_shift(x32, shift, s))
+        recs["temporal_shift"]["wall_ms"] = recs["temporal_shift"].get("wall_ms", 0.0) + wall
 
         # the backward kernel at a train step's SG_THROUGHPUT_WINDOWS windows
         n = SG_THROUGHPUT_WINDOWS
         x32, g32 = x32[:n], torch.randn(n, lo, 25, c, generator=gen, device="cuda")
         shape = (n, l, 25, c, s)
-        err = 0.0
+        ms = {}
         for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
             x, g, sh = x32.to(dt), g32.to(dt), shift.to(dt)
-            gx, gs = temporal_shift_bwd(x, sh, g, s)
-            ref_gx, ref_gs = temporal_shift_vjp_plain(x, sh, g, s)
-            check_equal(f"temporal_shift_bwd {shape} {str(dt)[6:]} gx", gx, ref_gx)
-            e, rel = rel_err(gs, ref_gs)
-            print(f"  temporal_shift_bwd {shape} {str(dt)[6:]}: gx the plain version's bits; "
-                  f"g_shift max abs err {e:.3e} (relative {rel:.3e}, tolerance {tol:g})",
-                  flush=True)
-            check(bool(torch.isfinite(gs.float()).all()), "temporal_shift_bwd: non-finite")
-            check(rel <= tol, f"temporal_shift_bwd {shape} {dt}: g_shift relative error {rel:.3e}")
-            check_repeatable("temporal_shift_bwd", lambda: temporal_shift_bwd(x, sh, g, s))
+            e = check_shift_bwd(f"temporal_shift_bwd {shape} {str(dt)[6:]}", x, sh, g, s, tol)
             if dt == torch.float32:
                 err = e
-        ms = device_ms(lambda: temporal_shift_bwd(x32, shift, g32, s))
+            ms[dt] = device_ms(lambda: temporal_shift_bwd(x, sh, g, s))
         plain_ms = device_ms(lambda: temporal_shift_vjp_plain(x32, shift, g32, s), calls=3)
-        # one read of g and x, one write of gx (and the shifts, g_shift);
-        # 3 operations an input element (gx), 3 an output (g_shift's product,
-        # difference and add)
-        nbytes = 4 * (n * 25 * c * (lo + 2 * l) + 2 * c)
-        b = bound(nbytes, 0, instr=3 * n * 25 * c * (l + lo))
-        add_record(recs, "temporal_shift_bwd", shape, err, count * ms, count * plain_ms, None,
-                   tuple(count * t for t in b))
+        b32, b16 = (shift_bounds(n, l, lo, c, size)[1] for size in (4, 2))
+        add_record(recs, "temporal_shift_bwd", shape, err, count * ms[torch.float32],
+                   count * plain_ms, None, tuple(count * t for t in b32))
+        add_bf16_record(recs, "temporal_shift_bwd", shape, count * ms[torch.bfloat16],
+                        tuple(count * t for t in b16))
     return recs
+
+
+# (N, L, C, stride): widths the models' shapes leave out: TP's narrowest
+# blocks (8 and 16 channels), widths off the 16-byte vector (6, 12 in bf16,
+# 20 in bf16), stride 3
+SHIFT_WIDTHS = [(256, 50, 8, 1), (256, 52, 16, 2), (64, 25, 6, 1), (64, 26, 12, 2),
+                (64, 50, 20, 3), (64, 13, 8, 3)]
+
+
+def shift_width_phase():
+    """The shift kernels against their plain versions at SHIFT_WIDTHS, fp32
+    and bf16, and on x, g stored one element past a 16-byte boundary (the
+    kernels' columns of one channel): y and gx the plain version's bits, the
+    bf16 forward the fp32 plain version rounded once, g_shift within
+    TOL_FP32 / TOL_BF16."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.ops.shift import temporal_shift, temporal_shift_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    print("temporal_shift and temporal_shift_bwd at narrow widths, widths off the vector "
+          "and unaligned storage", flush=True)
+
+    def unaligned(t):  # the same values, stored one element past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for n, l, c, s in SHIFT_WIDTHS:
+        shift = rng.uniform(-10.0, 10.0, size=c).astype(np.float32)
+        shift[: min(c, len(SHIFT_CASES))] = SHIFT_CASES[: min(c, len(SHIFT_CASES))]
+        shift = torch.tensor(shift, device="cuda")
+        x32 = torch.randn(n, l, 25, c, generator=gen, device="cuda")
+        g32 = torch.randn(n, -(-l // s), 25, c, generator=gen, device="cuda")
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+            for where, wrap in (("aligned", lambda t: t), ("unaligned", unaligned)):
+                x, g, sh = wrap(x32.to(dt)), wrap(g32.to(dt)), shift.to(dt)
+                name = f"(N={n}, L={l}, C={c}, stride {s}) {str(dt)[6:]} {where}"
+                if dt == torch.float32:
+                    check_equal(f"temporal_shift {name}", temporal_shift(x, sh, s),
+                                temporal_shift_plain(x, sh, s))
+                else:
+                    check_shift_bf16_rounding(f"temporal_shift {name}", x, sh, s)
+                check_shift_bwd(f"temporal_shift_bwd {name}", x, sh, g, s, tol)
 
 
 def shift_serving_phase(cfg):
@@ -1705,8 +1813,8 @@ def plus_kernel_phase(recs):
     the teacher's and the student's shapes (``shift_kernel_phase``: fp32
     and bf16, repeatable; the backward's gx the plain version's bits). Their
     sums over a forward's launches go into the kernels line as ``plus_*``
-    keys: the teacher's 20 and the student's 14 forward launches, and the
-    student's 14 backward launches (a wrapper step's)."""
+    keys, fp32 and bf16: the teacher's 20 and the student's 14 forward
+    launches, and the student's 14 backward launches (a wrapper step's)."""
     teacher, student = plus_shift_shapes(plus_cfg())
     print(f"Shift-GCN++ shift shapes (L, C, stride): launches a forward: teacher "
           f"{teacher}, student {student}", flush=True)
@@ -1718,11 +1826,12 @@ def plus_kernel_phase(recs):
         parts = [s_recs[name]] if name.endswith("bwd") else [t_recs[name], s_recs[name]]
         r = recs[name]
         r["max_abs_err"] = max([r["max_abs_err"]] + [p["max_abs_err"] for p in parts])
-        for key in ("ms", "plain_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "bf16_ms", "bf16_bound_ms"):
             r[f"plus_{key}"] = sum(p[key] for p in parts)
         print(f"  {name} over a Shift-GCN++ wrapper's {'14 student' if name.endswith('bwd') else '34'} "
               f"launches: {r['plus_ms']:.4f} ms, plain {r['plus_plain_ms']:.4f} ms, bound "
-              f"{r['plus_bound_ms']:.4f} ms", flush=True)
+              f"{r['plus_bound_ms']:.4f} ms; bfloat16 {r['plus_bf16_ms']:.4f} ms, bound "
+              f"{r['plus_bf16_bound_ms']:.4f} ms", flush=True)
 
 
 def plus_forward_phase():
@@ -4721,6 +4830,72 @@ def sp_shift_join(shift, stride, ranks, length):
     return torch.cat(ys, 1), gxs[:, back: back + length], gss
 
 
+def sp_shift_kernel_phase(recs, count, gen, rng):
+    """The temporal shift and its backward at Shift-GCN's 20 launches (W =
+    50, seq 2) and the Shift-GCN++ teacher's 20 and student's 14 (W = SP_W,
+    seq 2 and 4), TP_SHIFT_WINDOWS windows, fp32 and bf16, on each seq
+    rank's extended block (:func:`sp_shift_blocks`), joined against the
+    whole launch (y bit for bit, gx bits or within TOL_FP32 / TOL_BF16,
+    g_shift within them), the blocks' summed device time beside the whole
+    launch's; adds sp_ms and plus_sp_ms to the kernels' records. ``count``
+    takes the counts before a group of launches and adds the launches;
+    ``gen`` and ``rng`` make the inputs."""
+    import numpy as np
+    import torch
+
+    from stgx_torch.ops.shift import temporal_shift, temporal_shift_bwd
+
+    teacher, student = plus_shift_shapes(plus_cfg())
+    families = (("sp_ms", "Shift-GCN", shift_shapes(load_cfg(SG_CONFIG)), 50, (2,)),
+                ("plus_sp_ms", "Shift-GCN++ teacher", teacher, SP_W, (2, 4)),
+                ("plus_sp_ms", "Shift-GCN++ student", student, SP_W, (2, 4)))
+    shift_sums = {}
+    for key, family, shapes, w, seqs in families:
+        sums = shift_sums.setdefault(key, {})
+        for (l, c, s), launches in shapes.items():
+            strides, length = [], w  # the stride-2 units before this shape's input
+            while length > l:
+                length = -(-length // 2)
+                strides.append(2)
+            shift32 = torch.tensor(rng.uniform(-10.0, 10.0, size=c).astype(np.float32),
+                                   device="cuda")
+            x32 = torch.randn(TP_SHIFT_WINDOWS, l, 25, c, generator=gen, device="cuda")
+            g32 = torch.randn(TP_SHIFT_WINDOWS, -(-l // s), 25, c, generator=gen,
+                              device="cuda")
+            for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+                x, g, shift = x32.to(dt), g32.to(dt), shift32.to(dt)
+                y = temporal_shift(x, shift, s)
+                gx, gs = temporal_shift_bwd(x, shift, g, s)
+                whole = {"temporal_shift": device_ms(lambda: temporal_shift(x, shift, s)),
+                         "temporal_shift_bwd": device_ms(
+                             lambda: temporal_shift_bwd(x, shift, g, s))}
+                for sq in seqs:
+                    edges = sp_edges(w, sq, strides)
+                    ranks = sp_shift_blocks(x, shift, g, s, edges)
+                    before = counts()
+                    ys, gxj, gsj = sp_shift_join(shift, s, ranks, l)
+                    torch.cuda.synchronize()
+                    count(before)
+                    tag = (f"SP seq={sq} {family} (L={l} in {edges}, C={c}, stride {s}) "
+                           f"{str(dt)[6:]}")
+                    res = {"y": tp_held(f"{tag} y", ys, y, tol, True),
+                           "gx": "bits" if torch.equal(gxj.to(dt), gx) else
+                           tp_held(f"{tag} gx", gxj, gx.float(), tol, False),
+                           "g_shift": tp_held(f"{tag} g_shift", gsj, gs.float(), tol, False)}
+                    part = {"temporal_shift": device_ms(
+                                lambda: [temporal_shift(e, shift, s) for e, *_ in ranks]),
+                            "temporal_shift_bwd": device_ms(
+                                lambda: [temporal_shift_bwd(e, shift, ge, s)
+                                         for e, ge, *_ in ranks])}
+                    print(f"  {tag}: {json.dumps(res)}; ms " + ", ".join(
+                        f"{k} {whole[k]:.4f} | {part[k]:.4f} ({part[k] / whole[k]:.2f}x)"
+                        for k in whole), flush=True)
+                    # over a forward's launches (a step's for the backward)
+                    tp_add_times(sums, whole, part, sq, dt, weight=launches, prefix="seq")
+    for key, sums in shift_sums.items():
+        print(json.dumps({f"sp_window_shift {key}": tp_record(recs, sums, key)}), flush=True)
+
+
 def sp_window_kernel_phase(recs, data_dir):
     """The kernels of sequence parallelism's window path at full width, each
     seq rank's launches made on one card one block at a time (NCCL refuses
@@ -4819,55 +4994,7 @@ def sp_window_kernel_phase(recs, data_dir):
     print(json.dumps({"sp_window_gcn": tp_record(recs, gcn_sums, "sp_ms")}), flush=True)
 
     # the temporal shifts: a rank's extended block, its kept outputs
-    teacher, student = plus_shift_shapes(plus_cfg())
-    families = (("sp_ms", "Shift-GCN", shift_shapes(load_cfg(SG_CONFIG)), 50, (2,)),
-                ("plus_sp_ms", "Shift-GCN++ teacher", teacher, SP_W, (2, 4)),
-                ("plus_sp_ms", "Shift-GCN++ student", student, SP_W, (2, 4)))
-    shift_sums = {}
-    for key, family, shapes, w, seqs in families:
-        sums = shift_sums.setdefault(key, {})
-        for (l, c, s), launches in shapes.items():
-            strides, length = [], w  # the stride-2 units before this shape's input
-            while length > l:
-                length = -(-length // 2)
-                strides.append(2)
-            shift32 = torch.tensor(rng.uniform(-10.0, 10.0, size=c).astype(np.float32),
-                                   device="cuda")
-            x32 = torch.randn(TP_SHIFT_WINDOWS, l, 25, c, generator=gen, device="cuda")
-            g32 = torch.randn(TP_SHIFT_WINDOWS, -(-l // s), 25, c, generator=gen,
-                              device="cuda")
-            for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
-                x, g, shift = x32.to(dt), g32.to(dt), shift32.to(dt)
-                y = temporal_shift(x, shift, s)
-                gx, gs = temporal_shift_bwd(x, shift, g, s)
-                whole = {"temporal_shift": device_ms(lambda: temporal_shift(x, shift, s)),
-                         "temporal_shift_bwd": device_ms(
-                             lambda: temporal_shift_bwd(x, shift, g, s))}
-                for sq in seqs:
-                    edges = sp_edges(w, sq, strides)
-                    ranks = sp_shift_blocks(x, shift, g, s, edges)
-                    before = counts()
-                    ys, gxj, gsj = sp_shift_join(shift, s, ranks, l)
-                    torch.cuda.synchronize()
-                    count(before)
-                    tag = (f"SP seq={sq} {family} (L={l} in {edges}, C={c}, stride {s}) "
-                           f"{str(dt)[6:]}")
-                    res = {"y": tp_held(f"{tag} y", ys, y, tol, True),
-                           "gx": "bits" if torch.equal(gxj.to(dt), gx) else
-                           tp_held(f"{tag} gx", gxj, gx.float(), tol, False),
-                           "g_shift": tp_held(f"{tag} g_shift", gsj, gs.float(), tol, False)}
-                    part = {"temporal_shift": device_ms(
-                                lambda: [temporal_shift(e, shift, s) for e, *_ in ranks]),
-                            "temporal_shift_bwd": device_ms(
-                                lambda: [temporal_shift_bwd(e, shift, ge, s)
-                                         for e, ge, *_ in ranks])}
-                    print(f"  {tag}: {json.dumps(res)}; ms " + ", ".join(
-                        f"{k} {whole[k]:.4f} | {part[k]:.4f} ({part[k] / whole[k]:.2f}x)"
-                        for k in whole), flush=True)
-                    # over a forward's launches (a step's for the backward)
-                    tp_add_times(sums, whole, part, sq, dt, weight=launches, prefix="seq")
-    for key, sums in shift_sums.items():
-        print(json.dumps({f"sp_window_shift {key}": tp_record(recs, sums, key)}), flush=True)
+    sp_shift_kernel_phase(recs, count, gen, rng)
 
     if torch.cuda.device_count() >= 2:
         line["multi_rank_st"] = "ST-GCN " + multi_rank_vs_one(data_dir, "SP window", _st_step,
@@ -5543,6 +5670,7 @@ def run() -> int:
     sg_cfg = load_config(SG_CONFIG)
     t_phase = time.perf_counter()
     recs.update(shift_kernel_phase(shift_shapes(sg_cfg)))
+    shift_width_phase()
     phase_done("temporal_shift vs plain", t_phase)
     t_phase = time.perf_counter()
     sg_parts = shift_serving_phase(sg_cfg)
@@ -5820,7 +5948,10 @@ def run() -> int:
           f"launches of one Shift-GCN forward of {SG_WINDOWS} windows (plus_*: over the "
           f"34 launches of one Shift-GCN++ wrapper forward of {SP_WINDOWS} windows of "
           f"{SP_W} frames, temporal_shift_bwd over the student's 14 of a step at "
-          f"{SG_THROUGHPUT_WINDOWS} windows); launches are those of the serving, training "
+          f"{SG_THROUGHPUT_WINDOWS} windows; both shift kernels device times, fp32 and bf16 "
+          f"(bf16_ms, bf16_bound_ms: the bound with bf16's element size), temporal_shift's "
+          f"wall_ms the fp32 forward timed with its host time, as earlier runs timed it); "
+          f"launches are those of the serving, training "
           f"and CLI paths of RT-ST-GCN, Shift-GCN, Shift-GCN++ and CoST-GCN; "
           f"int8_gemm and w8_gemm over one step of RT9's and CoST9's int8 cells at "
           f"B={B_STREAM} with int8 codes / fp32 operands (library_ms: torch._int_mm at the "
@@ -5865,9 +5996,66 @@ def run() -> int:
     return 0
 
 
+def run_shift_kernels() -> int:
+    """``python3 chip_smoke.py --shift-kernels``: the shift kernels alone,
+    the build, then ``shift_kernel_phase`` at Shift-GCN's shapes,
+    ``shift_width_phase``, ``plus_kernel_phase``, ``tp_shift_kernel_phase``
+    and ``sp_shift_kernel_phase``, each printing its checks and times, then
+    one ``{"shift_kernels": ...}`` line of their records. Only the shift
+    ops' public names are used, so this script placed beside another
+    checkout's ``stgx_torch/`` measures that checkout's kernels with the
+    same inputs (the way a change is timed against its parent on one card)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "stgx_torch")):
+        print("chip_smoke: run it from the repository (stgx_torch/ is missing)",
+              file=sys.stderr)
+        return 2
+    os.chdir(here)
+    sys.path.insert(0, here)
+
+    from stgx_torch import strict_numerics
+    from stgx_torch.kernels import build
+
+    strict_numerics()
+    t_run = time.perf_counter()
+    smi = smi_line()
+    print(smi, flush=True)
+    build.load()
+    print(f"kernel build: {time.perf_counter() - t_run:.1f} s", flush=True)
+    lines = build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "registers" in line and "shift" in " ".join(lines[max(0, i - 3): i]):
+            print("  ptxas:", lines[i - 1].strip(), "|", line.strip(), flush=True)
+    recs = shift_kernel_phase(shift_shapes(load_cfg(SG_CONFIG)))
+    shift_width_phase()
+    plus_kernel_phase(recs)
+    tp_shift_kernel_phase(recs)
+    sp_shift_kernel_phase(recs, lambda before: None,
+                          torch.Generator(device="cuda").manual_seed(SEED + 44),
+                          np.random.default_rng(SEED + 44))
+    print(json.dumps({"shift_kernels": {
+        name: {k: v for k, v in r.items() if not k.startswith("_")}
+        for name, r in recs.items()}}), flush=True)
+    print(f"the shift kernels' run: {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--exported"]:
         sys.exit(run_exported(sys.argv[2]))
+    if sys.argv[1:2] == ["--shift-kernels"]:
+        try:
+            sys.exit(run_shift_kernels())
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            sys.exit(1)
     try:
         sys.exit(run())
     except SmokeFailure as e:

@@ -125,9 +125,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stgx_rt_fused_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i,
                                       i, i, i, i, i, i, i, i, i, i, i, p]
     lib.stgx_rt_fused_bwd.restype = i
-    lib.stgx_temporal_shift.argtypes = [p, p, p, ll, i, i, i, i, i, i, p]
+    lib.stgx_temporal_shift.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i, p]
     lib.stgx_temporal_shift.restype = i
-    lib.stgx_temporal_shift_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+    lib.stgx_temporal_shift_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i,
+                                            p]
     lib.stgx_temporal_shift_bwd.restype = i
     lib.stgx_int8_gemm.argtypes = [i, p, ll, p, ll, p, p, p, p, i, i, i, p]
     lib.stgx_int8_gemm.restype = i

@@ -14,8 +14,11 @@ Bound on the H100: bytes. Each input frame feeds at most two outputs: the
 least traffic is one read of x and one write of y. The design answer, in
 the source's note: the two-tap interpolation (2 products and an add an
 output, not the TPU's 18-tap band), the rows a block needs staged in shared
-memory so the loads coalesce although neighbouring channels shift by
-different frames, and only the kept frames formed.
+memory by 16-byte ``cp.async`` copies so the loads coalesce although
+neighbouring channels shift by different frames, blocks of 32 columns of
+16 bytes that take as many (n, v) pairs as the channel width leaves room
+for, and only the kept frames formed. :func:`shift_plan` sizes every launch
+of the forward and the backward.
 
 Numerics: the shift is taken in x's type, as the JAX op takes it
 (``shift_band_weights(shift.astype(x.dtype))``). The kernel forms ``1 − a``
@@ -37,11 +40,14 @@ g·(x[t·s+f+1] − x[t·s+f])``, zero where the clip is active (half at exactly
 ±K, as JAX's clip gives). The JAX VJP is XLA, not Pallas; here a CUDA tensor
 runs it in the hand-written kernel of :func:`temporal_shift_bwd`
 (``csrc/temporal_shift.cu``), the forward's layout with ``g_shift`` summed
-as per-block partials added in a fixed order; its plain version is
-:func:`temporal_shift_vjp_plain`.
+as partials of aligned groups of four (n, v) pairs, added in an order that
+(N, L, V, stride, K) alone fix, so a channel block gives the whole launch's
+bits; its plain version is :func:`temporal_shift_vjp_plain`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -50,8 +56,9 @@ from stgx_torch import kernels
 
 __all__ = [
     "MAX_SHIFT",
+    "ShiftPlan",
     "shift_band_weights",
-    "shift_bwd_tile",
+    "shift_plan",
     "temporal_shift",
     "temporal_shift_bwd",
     "temporal_shift_plain",
@@ -61,8 +68,17 @@ __all__ = [
 ]
 
 MAX_SHIFT = 8  # the band's half-width K; shifts clip to [-K, K]
-SLAB_ROWS = 160  # frames a block of csrc/temporal_shift.cu stages (kSlabRows)
-SHIFT_SPAN = 256  # partials of g_shift the first reduction pass adds a block (kSpan)
+# csrc/temporal_shift.cu's constants
+COLS = 32  # columns a block, one a lane (kCols)
+PARTS = 8  # warps a block: frames formed at once (kParts)
+GROUP = 4  # (n, v) pairs a partial of g_shift adds (kGroup)
+RED_WARPS = 32  # warps of the g_shift reduction, each adding a span of partials (kRedWarps)
+SMEM_LIMIT = 232448  # shared memory a block may use (stgx::kMaxSmem)
+# the plan's budgets: frame rows a block stages at most, forward (x) and
+# backward (x and g); at the Shift-GCN lengths (L <= 52) one tile takes a
+# whole window
+FWD_ROWS = 96
+BWD_ROWS = 140
 
 
 def shift_band_weights(shift, max_shift: int = MAX_SHIFT):
@@ -128,9 +144,11 @@ def _launch_shift(x: torch.Tensor, shift: torch.Tensor, stride: int,
     y = torch.empty((n, -(-l // stride), v, c), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    vec = _vec(c, x, y)
+    plan = shift_plan(n, l, v, c, stride, max_shift, x.element_size(), vec)
     rc = kernels.load().stgx_temporal_shift(
         x.data_ptr(), shift.data_ptr(), y.data_ptr(), n, l, v, c, stride,
-        max_shift, code, kernels.stream_handle(),
+        max_shift, plan.tile, plan.lcbv, int(vec), code, kernels.stream_handle(),
     )
     kernels.check(rc, "temporal_shift")
     temporal_shift.launches += 1
@@ -180,15 +198,73 @@ def temporal_shift_vjp_plain(x, shift, g, stride: int = 1, max_shift: int = MAX_
     return gx.to(x.dtype), gsh.to(shift.dtype)
 
 
-def shift_bwd_tile(l: int, stride: int, max_shift: int = MAX_SHIFT) -> int:
-    """Output frames a block of the backward kernel takes: as many as the
-    staged rows of g on the input grid (``tile·s + 2K + 1``) and of x
-    (``(tile − 1)·s + 2K + 2``) allow, at most the whole sequence."""
-    tile = min((SLAB_ROWS - 2 * max_shift - 1) // stride, -(-l // stride))
+class ShiftPlan(NamedTuple):
+    """One launch of ``csrc/temporal_shift.cu`` (:func:`shift_plan`)."""
+
+    width: int  # channels a column: 16 bytes of the type, or 1
+    lcbv: int  # log2 of the columns a pair's channels take in a block
+    pairs: int  # (n, v) pairs a block takes: COLS >> lcbv
+    grid: tuple  # (pair blocks, channel chunks, tiles)
+    tile: int  # output frames a block forms
+    rows: int  # frame rows a block stages (backward: x and g)
+    smem: int  # bytes of shared memory a block
+    partials: int  # partials of g_shift a channel (backward), else 0
+
+
+def shift_plan(n: int, l: int, v: int, c: int, stride: int, max_shift: int = MAX_SHIFT,
+               itemsize: int = 4, vec: bool = True, backward: bool = False) -> ShiftPlan:
+    """The forward's or the backward's launch at x ``(n, l, v, c)``.
+
+    A block takes 32 columns: ``width`` channels of one (n, v) pair each (16
+    bytes where ``vec``: C a multiple of that and the tensors aligned; else
+    one channel). A pair's channels take ``2**lcbv = min(8, ⌈C / width⌉)``
+    columns (rounded up to a power of two) and the block ``32 >> lcbv``
+    pairs, so narrow channel blocks still fill the lanes; the channels past 8
+    columns go to further chunks. The tile is the most output frames whose
+    rows fit the budget: the forward stages x's ``(tile − 1)·s + 2K + 2``
+    frames, the backward those and g's ``tile + ⌈(K+1)/s⌉ + ⌈K/s⌉`` (at its
+    own, stride-compressed frames). The backward's tile depends on
+    (L, stride, K) alone and its partials (one per aligned group of four
+    pairs and tile) on (N, V) too, never on C or the type: the order of
+    g_shift's sums is the same for a channel block as for the whole launch.
+    Raises ``ValueError`` where no tile of one frame fits.
+    """
+    k, s = max_shift, stride
+    lo = -(-l // s)
+    width = 16 // itemsize if vec else 1
+    if c % width:
+        raise ValueError(f"temporal_shift: {c} channels are not columns of {width}")
+    back, ahead = (k + s) // s, (k + s - 1) // s
+    if backward:
+        budget = BWD_ROWS
+        tile = (budget - 2 * k - 2 + s - back - ahead) // (s + 1)
+    else:
+        budget = FWD_ROWS
+        tile = (budget - 2 * k - 2) // s + 1
     if tile < 1:
-        raise ValueError(f"temporal_shift: no kernel for max_shift {max_shift} at stride "
-                         f"{stride} ({SLAB_ROWS} staged frames a block)")
-    return tile
+        raise ValueError(f"temporal_shift: no kernel for max_shift {k} at stride {s} "
+                         f"({budget} staged frames a block)")
+    tile = min(tile, lo)
+    rows = (tile - 1) * s + 2 * k + 2 + (tile + back + ahead if backward else 0)
+    cols = -(-c // width)
+    lcbv = min(3, (cols - 1).bit_length())
+    pairs = COLS >> lcbv
+    tiles = -(-lo // tile)
+    grid = (-(-(n * v) // pairs), -(-cols // (1 << lcbv)), tiles)
+    smem = rows * COLS * width * itemsize
+    if backward:  # the warps' sums reuse the slab
+        smem = max(smem, PARTS * COLS * width * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"temporal_shift: {smem} bytes of shared memory a block")
+    partials = -(-(n * v) // GROUP) * tiles if backward else 0
+    return ShiftPlan(width, lcbv, pairs, grid, tile, rows, smem, partials)
+
+
+def _vec(c: int, *tensors) -> bool:
+    """Columns of 16 bytes: C a multiple of 16 bytes' channels and every
+    tensor 16-byte aligned."""
+    return (c % (16 // tensors[0].element_size()) == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def temporal_shift_bwd(x, shift, g, stride: int = 1, max_shift: int = MAX_SHIFT):
@@ -203,13 +279,13 @@ def temporal_shift_bwd(x, shift, g, stride: int = 1, max_shift: int = MAX_SHIFT)
     gx, gsh = torch.empty_like(x), torch.empty_like(shift)
     if x.numel() == 0:
         return gx.zero_(), gsh.zero_()
-    tile = shift_bwd_tile(l, stride, max_shift)
-    partials = n * v * -(-g.shape[1] // tile)
-    ws = torch.empty((partials + -(-partials // SHIFT_SPAN)) * c, dtype=torch.float32,
-                     device=x.device)
+    vec = _vec(c, x, g, gx)
+    plan = shift_plan(n, l, v, c, stride, max_shift, x.element_size(), vec, backward=True)
+    ws = torch.empty(plan.partials * c, dtype=torch.float32, device=x.device)
     rc = kernels.load().stgx_temporal_shift_bwd(
         x.data_ptr(), shift.data_ptr(), g.data_ptr(), gx.data_ptr(), gsh.data_ptr(),
-        ws.data_ptr(), n, l, v, c, stride, max_shift, tile, code, kernels.stream_handle(),
+        ws.data_ptr(), n, l, v, c, stride, max_shift, plan.tile, plan.lcbv, int(vec), code,
+        kernels.stream_handle(),
     )
     kernels.check(rc, "temporal_shift_bwd")
     temporal_shift_bwd.launches += 1

@@ -100,6 +100,27 @@ def test_shift_grad_at_the_clip_is_jaxs():
     np.testing.assert_allclose(ts.grad.numpy(), np.asarray(gs), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("c", [8, 6])
+def test_plain_versions_match_jax_at_narrow_widths(c):
+    """TP's narrowest channel block (8 channels) and a width off the
+    kernels' 16-byte vector (6), at stride 3: the plain forward and the
+    plain backward against JAX's temporal_shift and its jax.vjp."""
+    l, stride = 25, 3
+    x = _x(l, seed=5, c=c)
+    sh = SHIFTS_SMOOTH[:c]
+    ref = np.asarray(j_shift.temporal_shift(jnp.asarray(x), jnp.asarray(sh), stride))
+    got = shift.temporal_shift_plain(torch.tensor(x), torch.tensor(sh), stride)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+    g = np.random.default_rng(6).normal(size=(2, -(-l // stride), 5, c)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, s: j_shift.temporal_shift(a, s, stride), jnp.asarray(x),
+                     jnp.asarray(sh))
+    gx, gs = vjp(jnp.asarray(g))
+    tgx, tgs = shift.temporal_shift_vjp_plain(torch.tensor(x), torch.tensor(sh),
+                                              torch.tensor(g), stride)
+    np.testing.assert_allclose(tgx.numpy(), np.asarray(gx), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tgs.numpy(), np.asarray(gs), rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_spatial_shift_matches_jax(reverse):
     x = np.random.default_rng(4).normal(size=(2, 6, 25, 70)).astype(np.float32)
